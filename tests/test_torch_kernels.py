@@ -1,0 +1,299 @@
+"""The port's attention (``repro_torch.kernels``) against the JAX package's.
+
+On the CPU the port's ops run their plain PyTorch versions; they are held
+against the JAX Pallas kernels in interpret mode and against the JAX
+oracles, on the same inputs made from a numpy seed, with the tolerances of
+``tests/test_kernels.py`` (2e-5 in f32, 2e-2 in bf16).  The tests marked
+``cuda`` hold the CUDA kernels against the plain versions and skip without
+a card.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels.decode_attention import (decode_attention,
+                                                  decode_attention_ref,
+                                                  flash_decode_bshd)
+from repro_torch.kernels.flash_attention import (attention, attention_ref,
+                                                 attention_xla,
+                                                 flash_attention_bshd)
+
+torch.set_num_threads(1)
+
+RNG = np.random.default_rng(42)
+TORCH_DT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _tol(dtype):
+    return (dict(rtol=2e-2, atol=2e-2) if dtype == "bfloat16"
+            else dict(rtol=2e-5, atol=2e-5))
+
+
+@pytest.fixture
+def jx():
+    """(jax.numpy, JAX attention ops); the tests compare with JAX."""
+    pytest.importorskip("jax")
+    import jax.numpy as jnp
+    from repro.kernels import decode_attention as jdec
+    from repro.kernels import flash_attention as jfa
+    return jnp, jfa, jdec
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+def _both(jnp, shape, dtype="float32"):
+    """The same normal draw as a JAX array and as a CPU tensor of
+    ``dtype`` (a name)."""
+    a = RNG.normal(size=shape).astype(np.float32)
+    j = jnp.asarray(a, getattr(jnp, dtype))
+    return j, torch.from_numpy(np.array(j, np.float32)).to(TORCH_DT[dtype])
+
+
+def _np(x):
+    return np.asarray(x.float() if isinstance(x, torch.Tensor) else x,
+                      np.float32)
+
+
+# ------------------------------------------------------- flash attention --
+
+SWEEP = [
+    (1, 64, 64, 4, 4, 32, True, 0),       # MHA causal
+    (2, 80, 80, 6, 2, 64, True, 0),       # GQA, non-multiple seq
+    (2, 48, 48, 4, 1, 128, True, 0),      # MQA, big head
+    (1, 64, 64, 4, 2, 32, False, 0),      # bidirectional
+    (2, 96, 96, 4, 2, 32, True, 24),      # sliding window
+    (1, 33, 33, 2, 2, 16, True, 0),       # odd seq
+    (2, 40, 40, 3, 1, 20, True, 0),       # smollm-smoke head_dim 20
+    (1, 70, 70, 15, 5, 64, True, 0),      # smollm-360m heads
+]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,sq,skv,hq,hkv,d,causal,window", SWEEP)
+def test_attention_matches_jax_pallas(jx, b, sq, skv, hq, hkv, d, causal,
+                                      window, dtype):
+    jnp, jfa, _ = jx
+    (qj, q), (kj, k), (vj, v) = (_both(jnp, (b, s, h, d), dtype)
+                                 for s, h in ((sq, hq), (skv, hkv),
+                                              (skv, hkv)))
+    pal = jfa.attention(qj, kj, vj, causal=causal, window=window,
+                        impl="pallas_interpret", block_q=32, block_k=32)
+    for out in (attention(q, k, v, causal=causal, window=window),
+                attention_ref(q, k, v, causal=causal, window=window),
+                attention_xla(q, k, v, causal=causal, window=window,
+                              block_q=32)):
+        assert out.dtype == TORCH_DT[dtype]
+        np.testing.assert_allclose(_np(out), _np(pal), **_tol(dtype))
+
+
+def test_attention_q_offset_matches_jax(jx):
+    """Chunked prefill: a q block continuing an existing kv timeline."""
+    jnp, jfa, _ = jx
+    (qj, q), (kj, k), (vj, v) = (_both(jnp, sh) for sh in (
+        (1, 16, 2, 32), (1, 48, 2, 32), (1, 48, 2, 32)))
+    pal = jfa.attention(qj, kj, vj, causal=True, q_offset=32,
+                        impl="pallas_interpret", block_q=16, block_k=16)
+    for impl in ("auto", "ref", "xla"):
+        out = attention(q, k, v, causal=True, q_offset=32, impl=impl)
+        np.testing.assert_allclose(_np(out), _np(pal), rtol=2e-5, atol=2e-5,
+                                   err_msg=impl)
+
+
+def test_attention_kv_start_left_pad_matches_jax(jx):
+    jnp, jfa, _ = jx
+    b, s, hq, hkv, d = 3, 64, 4, 2, 32
+    (qj, q), (kj, k), (vj, v) = (_both(jnp, (b, s, h, d))
+                                 for h in (hq, hkv, hkv))
+    starts = np.asarray([0, 17, 40], np.int32)
+    pal = jfa.attention(qj, kj, vj, causal=True,
+                        kv_start=jnp.asarray(starts),
+                        impl="pallas_interpret", block_q=32, block_k=32)
+    ks = torch.from_numpy(starts)
+    for impl in ("auto", "ref", "xla"):
+        out = attention(q, k, v, causal=True, kv_start=ks, impl=impl)
+        np.testing.assert_allclose(_np(out), _np(pal), rtol=2e-5, atol=2e-5,
+                                   err_msg=impl)
+    # row 2: the masked suffix equals attention over the suffix alone
+    solo = attention_ref(q[2:, 40:], k[2:, 40:], v[2:, 40:], causal=True)
+    out = attention_ref(q, k, v, causal=True, kv_start=ks)
+    np.testing.assert_allclose(_np(out[2, 40:]), _np(solo[0]), rtol=2e-5,
+                               atol=2e-5)
+
+
+def test_attention_kv_len_matches_jax_ref(jx):
+    """kv_len (chunked prefill) takes the plain path on the CPU."""
+    jnp, jfa, _ = jx
+    (qj, q), (kj, k), (vj, v) = (_both(jnp, sh) for sh in (
+        (2, 8, 4, 16), (2, 32, 2, 16), (2, 32, 2, 16)))
+    lens = np.asarray([20, 32], np.int32)
+    ref = jfa.attention_ref(qj, kj, vj, causal=True, q_offset=12,
+                            kv_len=jnp.asarray(lens))
+    for impl in ("auto", "ref", "xla"):
+        out = attention(q, k, v, causal=True, q_offset=12,
+                        kv_len=torch.from_numpy(lens), impl=impl)
+        np.testing.assert_allclose(_np(out), _np(ref), rtol=2e-5, atol=2e-5,
+                                   err_msg=impl)
+
+
+@pytest.mark.parametrize("impl", ["auto", "ref", "xla"])
+def test_attention_fully_masked_rows_output_zero(impl):
+    """kv_start == Skv (a filler row): zeros, never NaN."""
+    g = torch.Generator().manual_seed(0)
+    q, k, v = (torch.randn((2, 32, 2, 16), generator=g) for _ in range(3))
+    out = attention(q, k, v, kv_start=torch.tensor([32, 5],
+                                                   dtype=torch.int32),
+                    impl=impl)
+    assert torch.isfinite(out).all()
+    assert (out[0] == 0).all()
+    # the pad queries of row 1 (positions < 5) see no key either
+    assert (out[1, :5] == 0).all() and (out[1, 5:].abs().sum() > 0)
+
+
+def test_attention_cpu_dispatch_uses_plain_version():
+    """A CPU tensor takes the plain version and launches nothing."""
+    g = torch.Generator().manual_seed(1)
+    q, k, v = (torch.randn((1, 24, 3, 20), generator=g) for _ in range(3))
+    before = flash_attention_bshd.launches
+    out = attention(q, k, v, impl="auto")
+    assert torch.equal(out, attention_xla(q, k, v))
+    assert torch.equal(attention(q, k, v, impl="cuda"), out)
+    assert flash_attention_bshd.launches == before
+    with pytest.raises(ValueError, match="impl"):
+        attention(q, k, v, impl="pallas")
+
+
+# ------------------------------------------------------ decode attention --
+
+DEC_SWEEP = [
+    (2, 300, 4, 2, 64, 0),
+    (1, 128, 8, 1, 32, 0),        # MQA
+    (3, 257, 6, 6, 32, 0),        # MHA odd cache
+    (2, 300, 4, 2, 64, 64),       # windowed
+    (2, 100, 3, 1, 20, 0),        # smollm-smoke head_dim 20
+    (2, 160, 15, 5, 64, 0),       # smollm-360m heads
+]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,skv,hq,hkv,d,window", DEC_SWEEP)
+def test_decode_attention_matches_jax_pallas(jx, b, skv, hq, hkv, d, window,
+                                             dtype):
+    jnp, _, jdec = jx
+    qj, q = _both(jnp, (b, hq, d), dtype)
+    kj, k = _both(jnp, (b, skv, hkv, d), dtype)
+    vj, v = _both(jnp, (b, skv, hkv, d), dtype)
+    lens = RNG.integers(window + 1 if window else 1, skv + 1,
+                        size=(b,)).astype(np.int32)
+    pal = jdec.decode_attention(qj, kj, vj, jnp.asarray(lens), window=window,
+                                impl="pallas_interpret", block_k=128)
+    kl = torch.from_numpy(lens)
+    for out in (decode_attention(q, k, v, kl, window=window),
+                decode_attention_ref(q, k, v, kl, window=window)):
+        assert out.dtype == TORCH_DT[dtype]
+        np.testing.assert_allclose(_np(out), _np(pal), **_tol(dtype))
+
+
+def test_decode_attention_kv_start_matches_jax_and_unpadded(jx):
+    jnp, _, jdec = jx
+    b, skv, hq, hkv, d = 2, 64, 4, 2, 32
+    qj, q = _both(jnp, (b, hq, d))
+    kj, k = _both(jnp, (b, skv, hkv, d))
+    vj, v = _both(jnp, (b, skv, hkv, d))
+    starts, lens = (np.asarray(a, np.int32) for a in ([0, 24], [50, 64]))
+    pal = jdec.decode_attention(qj, kj, vj, jnp.asarray(lens),
+                                kv_start=jnp.asarray(starts),
+                                impl="pallas_interpret", block_k=128)
+    out = decode_attention(q, k, v, torch.from_numpy(lens),
+                           kv_start=torch.from_numpy(starts))
+    np.testing.assert_allclose(_np(out), _np(pal), rtol=2e-5, atol=2e-5)
+    solo = decode_attention_ref(q[1:], k[1:, 24:], v[1:, 24:],
+                                torch.tensor([40], dtype=torch.int32))
+    np.testing.assert_allclose(_np(out[1]), _np(solo[0]), rtol=2e-5,
+                               atol=2e-5)
+
+
+def test_decode_matches_full_attention_last_row():
+    """decode(q_last | cache) == full causal attention's last row."""
+    g = torch.Generator().manual_seed(2)
+    b, s, hq, hkv, d = 2, 40, 4, 2, 32
+    q = torch.randn((b, s, hq, d), generator=g)
+    k, v = (torch.randn((b, s, hkv, d), generator=g) for _ in range(2))
+    full = attention_ref(q, k, v, causal=True)
+    dec = decode_attention(q[:, -1], k, v, torch.full((b,), s,
+                                                      dtype=torch.int32))
+    np.testing.assert_allclose(_np(dec), _np(full[:, -1]), rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_decode_filler_rows_output_zero_and_dispatch_is_plain():
+    g = torch.Generator().manual_seed(3)
+    q = torch.randn((3, 6, 20), generator=g)
+    k, v = (torch.randn((3, 50, 2, 20), generator=g) for _ in range(2))
+    lens = torch.tensor([50, 50, 7], dtype=torch.int32)
+    starts = torch.tensor([0, 50, 7], dtype=torch.int32)   # rows 1, 2 empty
+    before = flash_decode_bshd.launches
+    out = decode_attention(q, k, v, lens, kv_start=starts)
+    assert flash_decode_bshd.launches == before
+    assert torch.equal(out, decode_attention_ref(q, k, v, lens,
+                                                 kv_start=starts))
+    assert torch.isfinite(out).all() and (out[1:] == 0).all()
+    with pytest.raises(ValueError, match="impl"):
+        decode_attention(q, k, v, lens, impl="pallas")
+
+
+# ------------------------------------------------- CUDA kernels (card) --
+
+@pytest.mark.cuda
+def test_cuda_attention_with_kv_len_raises(cuda):
+    q = torch.zeros((1, 4, 2, 16), device=cuda)
+    with pytest.raises(NotImplementedError, match="kv_len"):
+        attention(q, q, q, kv_len=torch.tensor([4], dtype=torch.int32,
+                                               device=cuda))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,sq,skv,hq,hkv,d,causal,window", SWEEP)
+def test_cuda_flash_kernel_matches_plain(cuda, b, sq, skv, hq, hkv, d,
+                                         causal, window, dtype):
+    g = torch.Generator(device=cuda).manual_seed(4)
+    dt = TORCH_DT[dtype]
+    q = torch.randn((b, sq, hq, d), generator=g, device=cuda).to(dt)
+    k, v = (torch.randn((b, skv, hkv, d), generator=g, device=cuda).to(dt)
+            for _ in range(2))
+    starts = torch.arange(b, dtype=torch.int32, device=cuda) * 5
+    before = flash_attention_bshd.launches
+    out = attention(q, k, v, causal=causal, window=window, kv_start=starts)
+    assert flash_attention_bshd.launches == before + 1
+    ref = attention_ref(q, k, v, causal=causal, window=window,
+                        kv_start=starts)
+    np.testing.assert_allclose(_np(out.cpu()), _np(ref.cpu()),
+                               **_tol(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,skv,hq,hkv,d,window", DEC_SWEEP)
+def test_cuda_decode_kernel_matches_plain(cuda, b, skv, hq, hkv, d, window,
+                                          dtype):
+    g = torch.Generator(device=cuda).manual_seed(5)
+    dt = TORCH_DT[dtype]
+    q = torch.randn((b, hq, d), generator=g, device=cuda).to(dt)
+    k, v = (torch.randn((b, skv, hkv, d), generator=g, device=cuda).to(dt)
+            for _ in range(2))
+    lens = torch.full((b,), skv, dtype=torch.int32, device=cuda)
+    lens[0] = max(1, skv // 3)
+    starts = torch.zeros((b,), dtype=torch.int32, device=cuda)
+    starts[-1] = skv // 4
+    before = flash_decode_bshd.launches
+    out = decode_attention(q, k, v, lens, window=window, kv_start=starts)
+    assert flash_decode_bshd.launches == before + 1
+    ref = decode_attention_ref(q, k, v, lens, window=window,
+                               kv_start=starts)
+    np.testing.assert_allclose(_np(out.cpu()), _np(ref.cpu()),
+                               **_tol(dtype))
