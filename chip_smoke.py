@@ -7,11 +7,16 @@ Run from the repository root, with no arguments:
 
 Phases, each raising on failure (the script then exits nonzero):
 
-1. build   — compile both CUDA kernels from ``src/repro_torch/csrc`` (one
+1. build   — compile the CUDA kernels from ``src/repro_torch/csrc`` (one
              ``nvcc`` per source, started together) and print the seconds.
 2. kernels — hold each kernel against its plain PyTorch version on the card
              (f32 at 2e-5, bf16 at 2e-2), at the serving shapes and at
-             D 20, ragged ``kv_start``, filler rows and a window; time the
+             D 20, ragged ``kv_start``, filler rows and a window; the paged
+             decode kernel at the paged serving shape (scrambled table,
+             trash tail) and BITWISE against the contiguous decode kernel
+             on the same logical keys (gathered, left-padded with
+             ``kv_start``, block sizes 16 and 48, D 20, a window); the
+             prefill kernel with ``kv_len`` at a chunk shape.  Time the
              kernel, the plain version and one PyTorch library call
              (``scaled_dot_product_attention``, timed only, never used by
              the port).
@@ -20,9 +25,19 @@ Phases, each raising on failure (the script then exits nonzero):
              requests and a wave of 3 with filler rows, through
              ``pack_prompts`` and ``make_generate_fn``.  Both kernels'
              launch counts must move by exactly the expected amounts.
+5. paged   — paged KV serving of ``smollm-360m`` at full width in bf16
+             through ``engine_paged_prefill`` / ``engine_paged_decode``:
+             8 slots, block size 16, table width 64, 512 blocks, a prefill
+             budget of 256 tokens, 8 decode steps per call, 12 requests
+             (the wave's 8, repeats of two, two sharing a 160-token head),
+             the last 4 admitted into freed slots.  The launch counts must
+             be exact (prefill kernel 32 per chunk forward, paged decode
+             kernel 32 per step, contiguous decode kernel 0).
 4. check   — in f32: prefill logits with the kernels against the plain
-             path (1e-3), and greedy tokens of each request served alone
-             equal to those served packed.
+             path (1e-3), greedy tokens of each request served alone equal
+             to those served packed, and the 12 requests served paged equal
+             to each served alone.  Phase 5 runs before phase 4 (it needs
+             the bf16 weights).
 
 It prints the card's name and power limit, then one JSON line of kernel
 numbers, then as its last line ``{"ok": true, "device": {...}}``.  Without a
@@ -45,6 +60,10 @@ PEAK_FLOPS = {"bfloat16": 989e12,           # dense tensor cores
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 MAX_NEW = 32
 WAVE_LENGTHS = (1, 64, 97, 160, 233, 311, 420, 512)
+# paged serving (phase 5): slots, block size, table width, pool blocks,
+# prefill token budget per call, decode steps per call
+PAGED = dict(slots=8, block_size=16, table_width=64, blocks=512, budget=256,
+             k=8)
 
 
 def _time_ms(fn, iters=20, warmup=3):
@@ -282,6 +301,156 @@ def phase_kernels(cfg, device):
     return fa, dec
 
 
+def _paged_bitwise(gen, device, dtype, *, b, skv, hq, hkv, d, bs, lens,
+                   pads, window=0):
+    """Kernel 3 on a pool against kernel 2 on the same logical keys, both
+    contiguous from column 0 and after a left pad of P slots with
+    kv_start = P: the bits must be equal."""
+    import torch
+    from repro_torch.kernels.decode_attention import (
+        flash_decode_bshd, flash_decode_paged_bshd, pool_from_contiguous)
+    q = _randn(gen, (b, hq, d), dtype, device)
+    k = _randn(gen, (b, skv, hkv, d), dtype, device)
+    v = _randn(gen, (b, skv, hkv, d), dtype, device)
+    kl = torch.tensor(lens, dtype=torch.int32, device=device)
+    pool_k, pool_v, table = pool_from_contiguous(
+        k, v, bs, lens=kl, generator=gen)
+    paged = flash_decode_paged_bshd(q, pool_k, pool_v, table, kl,
+                                    window=window)
+    for pad in pads:
+        kp = torch.cat([k.new_zeros((b, pad, hkv, d)), k], 1)
+        vp = torch.cat([v.new_zeros((b, pad, hkv, d)), v], 1)
+        start = torch.full((b,), pad, dtype=torch.int32, device=device)
+        contig = flash_decode_bshd(q, kp, vp, kl + pad, start, window=window)
+        torch.cuda.synchronize()
+        if not torch.equal(paged, contig):
+            raise AssertionError(
+                f"paged decode != contiguous decode bitwise: bs {bs} pad "
+                f"{pad} d {d} window {window} {dtype}; max diff "
+                f"{_max_err(paged, contig):.3g}")
+    return len(pads)
+
+
+def phase_kernels_paged(cfg, device):
+    """Kernel 3 (paged decode) against its plain version and bitwise
+    against kernel 2; kernel 1 with ``kv_len`` at a chunk shape; times."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention import (
+        decode_attention_paged_ref, flash_decode_paged_bshd,
+        pool_from_contiguous)
+    from repro_torch.kernels.flash_attention import (attention_xla,
+                                                     flash_attention_bshd)
+    gen = torch.Generator(device=device).manual_seed(2)
+    hq, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    b, bs, tw = PAGED["slots"], PAGED["block_size"], PAGED["table_width"]
+    cap = bs * tw
+    lens = [1, 64, 97, 160, 233, 311, 420, 512]      # + 16 decoded, below
+    lens = [n + 16 for n in lens]
+    errs = {"paged": 0.0, "flash_chunk": 0.0}
+    for dt in (torch.float32, torch.bfloat16):
+        tol = TOL[str(dt).split(".")[-1]]
+        q = _randn(gen, (b, hq, d), dt, device)
+        k = _randn(gen, (b, cap, hkv, d), dt, device)
+        v = _randn(gen, (b, cap, hkv, d), dt, device)
+        kl = torch.tensor(lens, dtype=torch.int32, device=device)
+        pool_k, pool_v, table = pool_from_contiguous(
+        k, v, bs, lens=kl, generator=gen)
+        out = flash_decode_paged_bshd(q, pool_k, pool_v, table, kl)
+        plain = decode_attention_paged_ref(q, pool_k, pool_v, table, kl)
+        torch.cuda.synchronize()
+        e = _max_err(out, plain)
+        if not torch.isfinite(out.float()).all() or not torch.allclose(
+                out.float(), plain.float(), rtol=tol, atol=tol):
+            raise AssertionError(f"paged decode vs plain: max err {e:.3g} "
+                                 f"> {tol} ({dt})")
+        errs["paged"] = max(errs["paged"], e)
+        print(f"[kernels] paged decode b{b} bs{bs} T{tw} hq{hq}/{hkv} d{d} "
+              f"{dt}: max err {e:.3g}")
+        n = 0
+        for kw in (dict(b=b, skv=cap, hq=hq, hkv=hkv, d=d, bs=bs, lens=lens,
+                        pads=(0, 1, 37, 200)),
+                   dict(b=b, skv=cap, hq=hq, hkv=hkv, d=d, bs=48, lens=lens,
+                        pads=(0, 5, 200)),
+                   dict(b=3, skv=300, hq=3, hkv=1, d=20, bs=16,
+                        lens=[300, 0, 45], pads=(0, 7)),
+                   dict(b=3, skv=600, hq=hq, hkv=hkv, d=d, bs=48,
+                        lens=[600, 333, 64], pads=(0, 100), window=128)):
+            n += _paged_bitwise(gen, device, dt, **kw)
+        print(f"[kernels] paged decode == contiguous decode bitwise ({dt}): "
+              f"{n} layouts (block sizes 16 and 48, left pads with kv_start,"
+              f" d 20, window 128)")
+
+        # kernel 1 at a chunk shape: Sq 256 at q_offset 256 against the
+        # 1024-wide gathered view, masked at kv_len 512
+        qc = _randn(gen, (1, 256, hq, d), dt, device)
+        kc = _randn(gen, (1, cap, hkv, d), dt, device)
+        vc = _randn(gen, (1, cap, hkv, d), dt, device)
+        klc = torch.tensor([512], dtype=torch.int32, device=device)
+        out = flash_attention_bshd(qc, kc, vc, kv_len=klc, q_offset=256)
+        plain = attention_xla(qc, kc, vc, kv_len=klc, q_offset=256)
+        torch.cuda.synchronize()
+        e = _max_err(out, plain)
+        if not torch.isfinite(out.float()).all() or not torch.allclose(
+                out.float(), plain.float(), rtol=tol, atol=tol):
+            raise AssertionError(f"flash with kv_len vs plain: max err "
+                                 f"{e:.3g} > {tol} ({dt})")
+        errs["flash_chunk"] = max(errs["flash_chunk"], e)
+        print(f"[kernels] flash chunk sq256 q_offset256 skv{cap} kv_len512 "
+              f"{dt}: max err {e:.3g}")
+
+    # times in bf16 (the last case of the loop)
+    es = q.element_size()
+    valid = sum(lens)
+    pd_bytes = (es * (valid * 2 * hkv * d + 2 * b * hq * d)
+                + 4 * (table.numel() + 2 * b))
+    pd_bound, pd_by, *pd_parts = _bound(pd_bytes, 4 * valid * hq * d,
+                                        "bfloat16")
+    kview = pool_k[table.long()].reshape(b, cap, hkv, d).transpose(1, 2)
+    vview = pool_v[table.long()].reshape(b, cap, hkv, d).transpose(1, 2)
+    cols = torch.arange(cap, device=device)
+    dmask = (cols[None, :] < kl[:, None])[:, None, None]
+    q4 = q[:, :, None]
+    paged = {
+        "ms": _time_ms(lambda: flash_decode_paged_bshd(q, pool_k, pool_v,
+                                                       table, kl)),
+        "plain_ms": _time_ms(lambda: decode_attention_paged_ref(
+            q, pool_k, pool_v, table, kl)),
+        "library_ms": _time_ms(lambda: F.scaled_dot_product_attention(
+            q4, kview, vview, attn_mask=dmask, enable_gqa=True)),
+        "library_note": "scaled_dot_product_attention on the pre-gathered "
+                        "view; excludes the gather",
+        "bound_ms": pd_bound, "bound_by": pd_by, "max_abs_err": errs["paged"],
+    }
+    rows = torch.arange(256, device=device)[:, None] + 256
+    cmask = (cols[None, :] <= rows) & (cols[None, :] < 512)     # (Sq,Skv)
+    pairs = int(cmask.sum())
+    fc_bytes = es * (2 * 256 * hq * d + 512 * 2 * hkv * d) + 4
+    fc_bound, fc_by, *fc_parts = _bound(fc_bytes, 4 * pairs * hq * d,
+                                        "bfloat16")
+    chunk = {
+        "ms": _time_ms(lambda: flash_attention_bshd(qc, kc, vc, kv_len=klc,
+                                                    q_offset=256)),
+        "plain_ms": _time_ms(lambda: attention_xla(qc, kc, vc, kv_len=klc,
+                                                   q_offset=256)),
+        "library_ms": _time_ms(lambda: F.scaled_dot_product_attention(
+            qc.transpose(1, 2), kc.transpose(1, 2), vc.transpose(1, 2),
+            attn_mask=cmask[None, None], enable_gqa=True)),
+        "bound_ms": fc_bound, "bound_by": fc_by,
+        "max_abs_err": errs["flash_chunk"],
+    }
+    for name, r, (t_bytes, t_ops) in (("paged decode", paged, pd_parts),
+                                       ("flash chunk", chunk, fc_parts)):
+        print(f"[kernels] {name} bf16 serving shape: kernel {r['ms']:.4f} "
+              f"ms, plain {r['plain_ms']:.4f} ms, library "
+              f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms "
+              f"({r['bound_by']}; bytes {t_bytes:.5f} ms, operations "
+              f"{t_ops:.5f} ms)")
+    print("[kernels] paged decode library time is scaled_dot_product_"
+          "attention on the pre-gathered view: it excludes the gather")
+    return paged, chunk
+
+
 # ------------------------------------------------------------ phase 3 ----
 
 def wave_prompts(cfg, seed=0):
@@ -295,7 +464,8 @@ def wave_prompts(cfg, seed=0):
 
 def phase_serve(cfg, params, device):
     import torch
-    from repro_torch.kernels.decode_attention import flash_decode_bshd
+    from repro_torch.kernels.decode_attention import (
+        flash_decode_bshd, flash_decode_paged_bshd)
     from repro_torch.kernels.flash_attention import flash_attention_bshd
     from repro_torch.models import build_model, grow_cache
     from repro_torch.runtime.server import make_generate_fn, pack_prompts
@@ -309,12 +479,15 @@ def phase_serve(cfg, params, device):
 
     flash_attention_bshd.launches = 0
     flash_decode_bshd.launches = 0
+    flash_decode_paged_bshd.launches = 0
     outs = [generate(params, toks, lens) for toks, lens in waves]
     torch.cuda.synchronize()
     launches = {"flash": flash_attention_bshd.launches,
-                "decode": flash_decode_bshd.launches}
+                "decode": flash_decode_bshd.launches,
+                "paged": flash_decode_paged_bshd.launches}
     want = {"flash": cfg.n_layers * len(waves),
-            "decode": cfg.n_layers * (MAX_NEW - 1) * len(waves)}
+            "decode": cfg.n_layers * (MAX_NEW - 1) * len(waves),
+            "paged": 0}
     if launches != want:
         raise AssertionError(f"launch counts {launches} != expected {want}")
     for (toks, lens), out in zip(waves, outs):
@@ -348,12 +521,11 @@ def phase_serve(cfg, params, device):
         params, cache, tok), decode_ms)
 
     # bf16 invariance is an open question: measured, not asserted
-    same = sum(
-        bool((generate(params, *pack_prompts([p], pad=cfg.pad_id))[0]
-              == outs[0][i]).all())
-        for i, p in enumerate(prompts))
+    solo = [generate(params, *pack_prompts([p], pad=cfg.pad_id))[0]
+            for p in prompts]
+    same = sum(bool((t == outs[0][i]).all()) for i, t in enumerate(solo))
     print(f"[serve] bf16 solo == packed for {same}/{len(prompts)} requests")
-    return launches, {"prefill_ms": prefill_ms, "decode_ms_per_step":
+    return launches, solo, {"prefill_ms": prefill_ms, "decode_ms_per_step":
                       decode_ms, "wave_ms": wave_ms, "tokens_per_s": tok_s,
                       "bf16_solo_equal": same, "profile": prof}
 
@@ -381,14 +553,209 @@ def phase_check(cfg32, params32, device):
 
     generate = make_generate_fn(cfg32, MAX_NEW, device)
     packed = generate(params32, toks, lens)
+    solos = []
     for i, p in enumerate(prompts):
         solo = generate(params32, *pack_prompts([p], pad=cfg32.pad_id))[0]
         if not bool((solo == packed[i]).all()):
             raise AssertionError(f"f32 request {i} (length {len(p)}): solo "
                                  f"tokens differ from packed")
+        solos.append(solo)
     print(f"[check] f32 greedy tokens: {len(prompts)} requests solo == "
           "packed")
-    return err
+    return err, solos
+
+
+# ------------------------------------------------------------ phase 5 ----
+
+def paged_prompts(cfg, seed=0):
+    """The wave's 8 prompts, then exact repeats of the 311- and 512-token
+    prompts (radix hits) and two prompts that share the first 160 tokens
+    of the 233-token prompt and then differ."""
+    import numpy as np
+    prompts = wave_prompts(cfg, seed)
+    rng = np.random.default_rng(seed + 1)
+    by_len = {len(p): p for p in prompts}
+    head = by_len[233][:160]
+    tails = [list(map(int, rng.integers(1, cfg.vocab_size, n)))
+             for n in (73, 120)]
+    return prompts + [list(by_len[311]), list(by_len[512]),
+                      head + tails[0], head + tails[1]]
+
+
+def serve_paged(cfg, params, prompts, device, handle):
+    """The shared client schedule (``runtime.schedule.serve_requests``) on
+    the phase-5 pool and budget, each engine call timed to its device
+    sync.  Returns (tokens per request, stats of the run)."""
+    import torch
+    from repro_torch.runtime import engine, state
+    from repro_torch.runtime.schedule import serve_requests
+
+    def timed(fn, into):
+        def call(*args, **kw):
+            t = time.perf_counter()
+            r = fn(*args, **kw)
+            torch.cuda.synchronize()
+            into.append((time.perf_counter() - t) * 1e3)
+            return r
+        return call
+
+    prefill_ms, decode_ms = [], []
+    torch.cuda.synchronize()
+    t_run = time.perf_counter()
+    toks, log = serve_requests(
+        timed(engine.engine_paged_prefill, prefill_ms),
+        timed(engine.engine_paged_decode, decode_ms), params, prompts,
+        cfg=cfg, handle=handle, slots=PAGED["slots"], k=PAGED["k"],
+        max_new=MAX_NEW, blocks=PAGED["blocks"],
+        table_width=PAGED["table_width"], block_size=PAGED["block_size"],
+        budget=PAGED["budget"], device=device)
+    torch.cuda.synchronize()
+    run_ms = (time.perf_counter() - t_run) * 1e3
+    state.release(handle)
+
+    prefills = [e for e in log if e["call"] == "prefill"]
+    decodes = [e for e in log if e["call"] == "decode"]
+    chunk_calls, matched = [0] * len(prompts), [0] * len(prompts)
+    for e in prefills:
+        for s, ent in e["reply"]["slots"].items():
+            req = e["requests"][int(s)]
+            chunk_calls[req] += 1
+            matched[req] = ent["matched"]
+    occs = [e["reply"]["occupancy"] for e in log]
+    st = {"chunk_forwards": sum(len(e["reply"]["slots"]) for e in prefills),
+          "chunk_calls": chunk_calls, "matched": matched,
+          "decode_calls": len(decodes),
+          "decode_live": [len(e["live"]) for e in decodes],
+          "prefill_ms": [t for t, e in zip(prefill_ms, prefills)
+                         if e["reply"]["slots"]],
+          "decode_ms": decode_ms, "run_ms": run_ms,
+          "peak_allocated_blocks": max(o["allocated_blocks"] for o in occs),
+          "peak_shared_blocks": max(o["shared_blocks"] for o in occs),
+          "admitted_into_freed": sum(len(e["reused"]) for e in prefills)}
+    return toks, st
+
+
+def decode_at_full_slots(cfg, params, prompts, device):
+    """Every slot live: prefill the first 8 requests in one call (no
+    budget), then three timed decode calls (their mean) and one under the
+    profiler."""
+    from repro_torch.runtime import engine, state
+    slots, k = PAGED["slots"], PAGED["k"]
+    kw = dict(cfg=cfg, handle="smoke-full", batch=slots,
+              blocks=PAGED["blocks"], table_width=PAGED["table_width"],
+              block_size=PAGED["block_size"], device=device)
+    prefill_ms = _wall_ms(lambda: engine.engine_paged_prefill(
+        params, admit=list(enumerate(prompts[:slots])), **kw))
+    step = lambda: engine.engine_paged_decode(params, cfg=cfg,  # noqa: E731
+                                              handle="smoke-full", k=k)
+    call_ms = sum(_wall_ms(step) for _ in range(3)) / 3
+    prof = _profile(f"paged decode call ({slots} live rows, {k} steps)",
+                    step, call_ms)
+    state.release("smoke-full")
+    return prefill_ms, call_ms / k, prof
+
+
+def phase_paged(cfg, params, device, solo_bf16):
+    """Paged serving at full width in bf16; exact launch counts."""
+    from repro_torch.kernels.decode_attention import (
+        flash_decode_bshd, flash_decode_paged_bshd)
+    from repro_torch.kernels.flash_attention import flash_attention_bshd
+    from repro_torch.runtime.server import make_generate_fn, pack_prompts
+    prompts = paged_prompts(cfg)
+    serve_paged(cfg, params, prompts[:2], device, "smoke-warm")
+    flash_attention_bshd.launches = 0
+    flash_decode_bshd.launches = 0
+    flash_decode_paged_bshd.launches = 0
+    toks, st = serve_paged(cfg, params, prompts, device, "smoke-paged")
+    launches = {"flash": flash_attention_bshd.launches,
+                "decode": flash_decode_bshd.launches,
+                "paged": flash_decode_paged_bshd.launches}
+    want = {"flash": cfg.n_layers * st["chunk_forwards"], "decode": 0,
+            "paged": cfg.n_layers * PAGED["k"] * st["decode_calls"]}
+    if launches != want:
+        raise AssertionError(f"paged launch counts {launches} != expected "
+                             f"{want}")
+    for i, t in enumerate(toks):
+        if len(t) != MAX_NEW or min(t) < 0 or max(t) >= cfg.vocab_size:
+            raise AssertionError(f"paged request {i}: bad tokens {t}")
+    if st["peak_shared_blocks"] <= 0:
+        raise AssertionError("no block was shared")
+    if max(st["chunk_calls"]) < 2:
+        raise AssertionError("no prompt was chunked over two calls")
+    if st["admitted_into_freed"] != len(prompts) - PAGED["slots"]:
+        raise AssertionError(f"{st['admitted_into_freed']} requests were "
+                             "admitted into freed slots, want "
+                             f"{len(prompts) - PAGED['slots']}")
+    # admission-time radix hits: the 311 repeat and the two shared heads
+    # (the 512 repeat is admitted before its original finished prefill, so
+    # it adopts the shared blocks later, when its turn comes)
+    if not all(st["matched"][i] for i in (8, 10, 11)):
+        raise AssertionError(f"radix matches {st['matched']}")
+    n_tok = len(prompts) * MAX_NEW
+    full_prefill_ms, full_step_ms, prof = decode_at_full_slots(
+        cfg, params, prompts, device)
+    summary = {
+        "launches": launches, "chunk_forwards": st["chunk_forwards"],
+        "chunk_calls": st["chunk_calls"], "matched": st["matched"],
+        "decode_calls": st["decode_calls"],
+        "decode_live_rows": st["decode_live"],
+        "prefill_call_ms_mean": sum(st["prefill_ms"]) / len(st["prefill_ms"]),
+        "prefill_call_ms_max": max(st["prefill_ms"]),
+        "decode_ms_per_step_mean": sum(st["decode_ms"]) / (
+            PAGED["k"] * len(st["decode_ms"])),
+        "run_ms": st["run_ms"], "tokens_per_s": n_tok / (st["run_ms"] / 1e3),
+        "peak_allocated_blocks": st["peak_allocated_blocks"],
+        "peak_shared_blocks": st["peak_shared_blocks"],
+        "admitted_into_freed": st["admitted_into_freed"],
+        "prefill_8_unbudgeted_ms": full_prefill_ms,
+        "decode_ms_per_step_8_live": full_step_ms,
+        "profile_decode_8_live": prof,
+    }
+    print(f"[paged] launches {launches}; {st['chunk_forwards']} chunk "
+          f"forwards, chunk calls per request {st['chunk_calls']}, radix "
+          f"matches at admission {st['matched']}, {st['decode_calls']} "
+          f"decode calls at live rows {st['decode_live']}")
+    print(f"[paged] smollm-360m bf16, 12 requests on 8 slots (block 16, "
+          f"table 64, pool {PAGED['blocks']} blocks, budget "
+          f"{PAGED['budget']}, k {PAGED['k']}, max_new {MAX_NEW}): prefill "
+          f"call {summary['prefill_call_ms_mean']:.2f} ms mean, "
+          f"{summary['prefill_call_ms_max']:.2f} ms max; decode "
+          f"{summary['decode_ms_per_step_mean']:.3f} ms/step mean; run "
+          f"{st['run_ms']:.1f} ms, {summary['tokens_per_s']:.1f} tokens/s; "
+          f"peak {st['peak_allocated_blocks']} blocks allocated, "
+          f"{st['peak_shared_blocks']} shared; "
+          f"{st['admitted_into_freed']} admitted into freed slots")
+    print(f"[paged] all 8 slots live: prefill of the wave's 8 prompts in one "
+          f"call {full_prefill_ms:.2f} ms; decode {full_step_ms:.3f} ms/step "
+          f"(mean of 3 calls of {PAGED['k']} steps)")
+    # bf16 paged == solo is measured, not asserted (PERF.md open question)
+    generate = make_generate_fn(cfg, MAX_NEW, device)
+    solo = list(solo_bf16) + [
+        generate(params, *pack_prompts([p], pad=cfg.pad_id))[0]
+        for p in prompts[len(solo_bf16):]]
+    same = sum(s.tolist() == t for s, t in zip(solo, toks))
+    summary["bf16_paged_equal_solo"] = same
+    print(f"[paged] bf16 paged == solo for {same}/{len(prompts)} requests")
+    return launches, summary
+
+
+def phase_check_paged(cfg32, params32, device, solo_f32):
+    """f32: the 12 requests served paged give each request's solo tokens."""
+    from repro_torch.runtime.server import make_generate_fn, pack_prompts
+    prompts = paged_prompts(cfg32)
+    generate = make_generate_fn(cfg32, MAX_NEW, device)
+    solo = list(solo_f32) + [
+        generate(params32, *pack_prompts([p], pad=cfg32.pad_id))[0]
+        for p in prompts[len(solo_f32):]]
+    toks, st = serve_paged(cfg32, params32, prompts, device, "smoke-f32")
+    for i, (s, t) in enumerate(zip(solo, toks)):
+        if s.tolist() != t:
+            raise AssertionError(f"f32 request {i} (length "
+                                 f"{len(prompts[i])}): paged tokens differ "
+                                 "from solo")
+    print(f"[check] f32 greedy tokens: {len(prompts)} requests paged == "
+          f"solo ({st['chunk_forwards']} chunk forwards, "
+          f"{st['decode_calls']} decode calls)")
 
 
 # --------------------------------------------------------------- main ----
@@ -414,6 +781,7 @@ def main() -> int:
     phase_build()
     cfg = get_config("smollm-360m")
     fa, dec = phase_kernels(cfg, device)
+    paged_k, fa_chunk = phase_kernels_paged(cfg, device)
 
     cfg32 = cfg.replace(param_dtype="float32", compute_dtype="float32")
     t = time.perf_counter()
@@ -422,21 +790,33 @@ def main() -> int:
     params = _cast(params32, torch.bfloat16)
     print(f"[init] smollm-360m random weights in {time.perf_counter() - t:.1f}"
           " s")
-    launches, serve = phase_serve(cfg, params, device)
+    launches, solo_bf16, serve = phase_serve(cfg, params, device)
+    paged_launches, paged = phase_paged(cfg, params, device, solo_bf16)
     del params
-    phase_check(cfg32, params32, device)
+    _, solo_f32 = phase_check(cfg32, params32, device)
+    phase_check_paged(cfg32, params32, device, solo_f32)
 
+    by_path = {name: {"wave": launches[name],
+                      "paged": paged_launches[name]} for name in launches}
     kernels = [
         dict(name="flash_attention_bshd", route="cuda",
              source="src/repro_torch/csrc/flash_attention.cu",
              replaces="src/repro/kernels/flash_attention/kernel.py:95",
-             launches=launches["flash"], **fa),
+             launches=sum(by_path["flash"].values()),
+             launches_by_path=by_path["flash"], **fa,
+             at_chunk_shape=fa_chunk),
         dict(name="flash_decode_bshd", route="cuda",
              source="src/repro_torch/csrc/decode_attention.cu",
              replaces="src/repro/kernels/decode_attention/kernel.py:82",
-             launches=launches["decode"], **dec),
+             launches=sum(by_path["decode"].values()),
+             launches_by_path=by_path["decode"], **dec),
+        dict(name="flash_decode_paged_bshd", route="cuda",
+             source="src/repro_torch/csrc/decode_attention.cu",
+             replaces="src/repro/kernels/decode_attention/kernel.py:187",
+             launches=sum(by_path["paged"].values()),
+             launches_by_path=by_path["paged"], **paged_k),
     ]
-    print(json.dumps({"serve": serve}))
+    print(json.dumps({"serve": serve, "paged": paged}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

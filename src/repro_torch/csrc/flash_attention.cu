@@ -1,5 +1,6 @@
 // Prefill (flash) attention for Hopper: GQA, causal, sliding window,
-// q_offset and a per-row kv_start left-pad mask, online softmax in f32.
+// q_offset, a per-row kv_start left-pad mask and an optional per-row kv_len
+// bound (chunked prefill), online softmax in f32.
 //
 // Replaces the TPU kernel `flash_attention_bhsd` (`_fa_kernel`) in
 // src/repro/kernels/flash_attention/kernel.py.  Same function: a row with no
@@ -13,7 +14,11 @@
 // K/V tiles of 64 keys staged in shared memory as f32 and keeps (acc, m, l)
 // in registers.  K tiles start at the row's kv_start, not at 0: a row's
 // sums then run in the same order however much left pad its batch added,
-// so a prompt's output does not depend on what it was packed with.
+// so a prompt's output does not depend on what it was packed with.  With
+// kv_len, keys at col >= kv_len[b] are masked (and not loaded) and the K
+// loop stops there; tiles stay aligned at kv_start (0 for a paged row), so
+// a prompt prefilled in one wave and one prefilled in chunks with growing
+// q_offset walk the same tiles.
 //
 // Bound on the card: at the serving shapes (B 8, S 512, Hq 15, D 64, bf16)
 // the bytes (q, k, v read once and o written once) take longer at 3.35 TB/s
@@ -37,6 +42,7 @@ struct Args {
   const void* v;
   void* o;
   const int* kv_start;  // (B,) or null
+  const int* kv_len;    // (B,) or null: keys at col >= kv_len[b] masked
   int sq, skv, hq, hkv, d;
   long long q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh;
   long long o_sb, o_ss, o_sh;
@@ -82,6 +88,7 @@ __global__ void __launch_bounds__(NT) fa_kernel(Args a) {
   const int b = blockIdx.z;
   const int hk = h / (a.hq / a.hkv);
   const int start = a.kv_start ? a.kv_start[b] : 0;
+  const int hi = a.kv_len ? max(0, min(a.skv, a.kv_len[b])) : a.skv;
 
   const T* q = (const T*)a.q + b * a.q_sb + h * a.q_sh;
   const T* k = (const T*)a.k + b * a.k_sb + hk * a.k_sh;
@@ -107,7 +114,7 @@ __global__ void __launch_bounds__(NT) fa_kernel(Args a) {
 
   const int qmin = row0 + a.q_offset;  // absolute position of the first row
   const int qmax = qmin + BQ - 1;
-  for (int col0 = start; col0 < a.skv; col0 += BK) {
+  for (int col0 = start; col0 < hi; col0 += BK) {
     if (a.causal && col0 > qmax) break;  // above the diagonal from here on
     if (a.window && col0 + BK - 1 <= qmin - a.window) continue;
 
@@ -115,7 +122,7 @@ __global__ void __launch_bounds__(NT) fa_kernel(Args a) {
     for (int i = tid; i < BK * DP; i += NT) {
       const int r = i / DP, c = i % DP;
       float kx = 0.f, vx = 0.f;
-      if (col0 + r < a.skv && c < a.d) {
+      if (col0 + r < hi && c < a.d) {
         kx = to_f(k[(long long)(col0 + r) * a.k_ss + c]);
         vx = to_f(v[(long long)(col0 + r) * a.v_ss + c]);
       }
@@ -149,7 +156,7 @@ __global__ void __launch_bounds__(NT) fa_kernel(Args a) {
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int col = col0 + cg + 16 * j;
-        bool ok = col < a.skv;  // col >= start holds: tiles begin there
+        bool ok = col < hi;  // col >= start holds: tiles begin there
         if (a.causal) ok = ok && col <= row;
         if (a.window) ok = ok && col > row - a.window;
         s[i][j] = ok ? s[i][j] : NEG_INF;
@@ -232,16 +239,17 @@ cudaError_t dispatch_d(const Args& a, int b, cudaStream_t stream) {
 // `stream`.
 extern "C" int repro_flash_attention(
     const void* q, const void* k, const void* v, void* o, const int* kv_start,
-    int dtype, int b, int sq, int skv, int hq, int hkv, int d,
+    const int* kv_len, int dtype, int b, int sq, int skv, int hq, int hkv,
+    int d,
     long long q_sb, long long q_ss, long long q_sh, long long k_sb,
     long long k_ss, long long k_sh, long long v_sb, long long v_ss,
     long long v_sh, long long o_sb, long long o_ss, long long o_sh,
     int causal, int window, int q_offset, float scale, void* stream) {
   if (d < 1 || d > 128 || hkv < 1 || hq % hkv != 0)
     return (int)cudaErrorInvalidValue;
-  Args a{q,    k,    v,    o,    kv_start, sq,   skv,  hq,   hkv,
-         d,    q_sb, q_ss, q_sh, k_sb,     k_ss, k_sh, v_sb, v_ss,
-         v_sh, o_sb, o_ss, o_sh, causal,   window, q_offset, scale};
+  Args a{q,    k,    v,    o,    kv_start, kv_len, sq,   skv,  hq,
+         hkv,  d,    q_sb, q_ss, q_sh,     k_sb,   k_ss, k_sh, v_sb,
+         v_ss, v_sh, o_sb, o_ss, o_sh,     causal, window, q_offset, scale};
   cudaStream_t s = (cudaStream_t)stream;
   cudaError_t err = dtype == 1 ? dispatch_d<__nv_bfloat16>(a, b, s)
                                : dispatch_d<float>(a, b, s);

@@ -16,12 +16,12 @@ from .._build import load, stream_of
 from .ref import attention_xla
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
+_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
              + [ctypes.c_longlong] * 12 + [ctypes.c_int] * 3
              + [ctypes.c_float, ctypes.c_void_p])
 
 
-def _check(q, k, v, kv_start):
+def _check(q, k, v, kv_start, kv_len):
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_bshd: q is on {q.device}, "
                          "the kernel needs a CUDA tensor")
@@ -48,26 +48,28 @@ def _check(q, k, v, kv_start):
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError("flash_attention_bshd: the last dim of q, k and v "
                          "must be contiguous")
-    if kv_start is not None and (
-            kv_start.device != q.device or kv_start.dtype != torch.int32
-            or kv_start.shape != (b,) or not kv_start.is_contiguous()):
-        raise ValueError("flash_attention_bshd: kv_start must be a "
-                         "contiguous (B,) int32 tensor on q's device")
+    for name, t in (("kv_start", kv_start), ("kv_len", kv_len)):
+        if t is not None and (
+                t.device != q.device or t.dtype != torch.int32
+                or t.shape != (b,) or not t.is_contiguous()):
+            raise ValueError(f"flash_attention_bshd: {name} must be a "
+                             "contiguous (B,) int32 tensor on q's device")
 
 
-def flash_attention_bshd(q, k, v, kv_start=None, *, causal: bool = True,
-                         window: int = 0, q_offset: int = 0,
-                         scale: float | None = None):
+def flash_attention_bshd(q, k, v, kv_start=None, *, kv_len=None,
+                         causal: bool = True, window: int = 0,
+                         q_offset: int = 0, scale: float | None = None):
     """q (B,Sq,Hq,D); k, v (B,Skv,Hkv,D) -> (B,Sq,Hq,D) in q's dtype.
 
     ``kv_start`` (B,) int32: per-row left-pad count, keys before it are
-    masked (None = no padding).  ``q_offset``: absolute position of q[0]
-    on the kv timeline."""
+    masked (None = no padding).  ``kv_len`` (B,) int32: per-row valid cache
+    length, keys at or past it are masked (None = all Skv).  ``q_offset``:
+    absolute position of q[0] on the kv timeline."""
     if q.device.type == "cpu":
         return attention_xla(q, k, v, causal=causal, window=window,
                              q_offset=q_offset, scale=scale,
-                             kv_start=kv_start)
-    _check(q, k, v, kv_start)
+                             kv_len=kv_len, kv_start=kv_start)
+    _check(q, k, v, kv_start, kv_len)
     b, sq, hq, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     scale = scale if scale is not None else d ** -0.5
@@ -78,6 +80,7 @@ def flash_attention_bshd(q, k, v, kv_start=None, *, causal: bool = True,
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  kv_start.data_ptr() if kv_start is not None else None,
+                 kv_len.data_ptr() if kv_len is not None else None,
                  _DTYPES[q.dtype], b, sq, skv, hq, hkv, d,
                  *(q.stride()[:3]), *(k.stride()[:3]), *(v.stride()[:3]),
                  *(out.stride()[:3]), int(causal), int(window),

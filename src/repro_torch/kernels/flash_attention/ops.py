@@ -20,21 +20,16 @@ def attention(q, k, v, *, causal: bool = True, window: int = 0,
 
     ``kv_start`` (B,) int32: per-row left-pad count — kv positions below it
     are masked on every impl.  A fully masked row outputs 0, never NaN.
-    ``kv_len`` (B,): valid cache length (chunked prefill); the kernel has no
-    such operand, so a CUDA tensor with ``kv_len`` raises.
+    ``kv_len`` (B,) int32: valid cache length per row (chunked prefill
+    over a gathered paged view); keys at or past it are masked on every
+    impl.
     """
     kw = dict(causal=causal, window=window, q_offset=q_offset, scale=scale,
-              kv_start=kv_start)
+              kv_len=kv_len, kv_start=kv_start)
     if impl == "ref":
-        return attention_ref(q, k, v, kv_len=kv_len, **kw)
+        return attention_ref(q, k, v, **kw)
     if impl == "xla":
-        return attention_xla(q, k, v, kv_len=kv_len, **kw)
+        return attention_xla(q, k, v, **kw)
     if impl not in IMPLS:
         raise ValueError(f"attention: impl {impl!r} not in {IMPLS}")
-    if kv_len is not None:
-        if q.device.type != "cpu":
-            raise NotImplementedError(
-                "attention: the CUDA prefill kernel has no kv_len operand "
-                "(chunked paged prefill is not ported yet)")
-        return attention_xla(q, k, v, kv_len=kv_len, **kw)
     return flash_attention_bshd(q, k, v, **kw)

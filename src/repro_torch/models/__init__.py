@@ -1,1 +1,2 @@
-from .api import Model, build_model, grow_cache, resolve_device
+from .api import (Model, PagedArena, build_model, grow_cache,
+                  paged_init_pool, paged_supported, resolve_device)

@@ -11,6 +11,9 @@ are masked out of attention and the cache carries the per-row first valid
 slot as ``cache["start"]``, so greedy decode of a prompt does not depend on
 the batch it was packed into.
 
+The paged-arena primitives (``paged_init_pool``, ``PagedArena``) serve
+``runtime/engine.py``'s paged entry points.
+
 Everything runs on ``device`` — ``"cuda"`` unless the caller asks for the
 CPU.  Only the dense family is ported.
 """
@@ -19,6 +22,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Callable
 
+import numpy as np
 import torch
 
 from ..configs.base import ModelConfig
@@ -85,3 +89,140 @@ def grow_cache(cfg: ModelConfig, cache, new_cap: int, bucket: bool = True):
             grown[:, :, :a.shape[2]] = a
             out[k] = grown
     return out
+
+
+# ------------------------------------------------- paged-arena primitives --
+# A refcounted pool of fixed-size KV *blocks* plus a per-row int32 block
+# table: capacity is live tokens, not slots × max-len, rows sharing a
+# block-aligned prompt prefix share the physical blocks (refcount++), and
+# "compaction" is dropping refcounts.  Block id 0 is reserved as the TRASH
+# block: never allocated, pinned at refcount 1, the landing zone for
+# dead-row and pad-position writes (always masked out of attention by
+# kv_len).
+#
+# The device side is two pool tensors (L, NB, BS, Hkv, D) that the model's
+# paged functions update in place; everything below is HOST accounting
+# (numpy), copied from ``repro/models/api.py`` so that the port's host
+# bookkeeping is the JAX engine's, step for step.
+
+def paged_supported(cfg: ModelConfig) -> bool:
+    """Families servable from a paged arena.  Attention families need the
+    plain (unquantized) KV pool layout; ssm has O(1) state and is served
+    paged via whole-state snapshots at the engine layer (no block pool).
+    hybrid keeps per-row conv/ssd state interleaved with KV — it stays on
+    the slot arena."""
+    if cfg.family == "ssm":
+        return True
+    return (cfg.family in ("dense", "moe", "vlm")
+            and not cfg.embeds_input and cfg.kv_quant != "int8")
+
+
+def paged_init_pool(cfg: ModelConfig, blocks: int, block_size: int,
+                    device="cuda"):
+    """Zeroed K/V block pools: (L, NB, BS, Hkv, D) in the cache dtype, on
+    ``device``.  Block 0 is the trash block — part of the tensor, never
+    handed out."""
+    dev = resolve_device(device)
+    cdt = getattr(torch, cfg.param_dtype)
+    shp = (cfg.n_layers, blocks, block_size, cfg.n_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shp, dtype=cdt, device=dev),
+            "v": torch.zeros(shp, dtype=cdt, device=dev)}
+
+
+class PagedArena:
+    """Host-side block accounting for one worker's paged KV pool.
+
+    Tracks, per physical block, a refcount (rows holding it + the radix
+    index holding it each count one reference); per row, the int32 block
+    table, resident token count, and liveness.  A block returns to the
+    free list only when its refcount hits zero — which is why LRU index
+    eviction can never free a block a live row references.
+    """
+
+    def __init__(self, batch: int, blocks: int, table_width: int,
+                 block_size: int):
+        self.batch = int(batch)
+        self.nb = int(blocks)
+        self.T = int(table_width)
+        self.bs = int(block_size)
+        self.table = np.zeros((batch, table_width), np.int32)
+        self.ref = np.zeros((blocks,), np.int32)
+        self.ref[0] = 1                         # pin the trash block
+        self.free = list(range(blocks - 1, 0, -1))
+        self.len = np.zeros((batch,), np.int32)
+        self.live = np.zeros((batch,), bool)
+        self.owned: dict[int, list[int]] = {s: [] for s in range(batch)}
+
+    # ---- block lifecycle ----
+    def alloc(self) -> int:
+        """One fresh block at refcount 1; raises IndexError when exhausted
+        (callers relieve pressure by evicting radix-held blocks first)."""
+        if not self.free:
+            raise IndexError("paged arena: block pool exhausted")
+        bid = self.free.pop()
+        self.ref[bid] = 1
+        return bid
+
+    def ref_inc(self, ids) -> None:
+        for bid in ids:
+            assert bid != 0 and self.ref[bid] > 0, bid
+            self.ref[bid] += 1
+
+    def ref_dec(self, ids) -> list[int]:
+        """Drop one reference per id; returns the ids that hit zero (their
+        slots are back on the free list — physical contents are stale
+        garbage, always masked until overwritten)."""
+        freed = []
+        for bid in ids:
+            assert bid != 0 and self.ref[bid] > 0, bid
+            self.ref[bid] -= 1
+            if self.ref[bid] == 0:
+                self.free.append(bid)
+                freed.append(bid)
+        return freed
+
+    # ---- row lifecycle ----
+    def adopt(self, slot: int, ids, n_tokens: int) -> None:
+        """Bind already-referenced blocks (a radix prefix hit, refcounts
+        bumped by the caller) as the row's head: table[:len(ids)] = ids."""
+        self.table[slot, :len(ids)] = ids
+        self.owned[slot].extend(int(i) for i in ids)
+        self.len[slot] = n_tokens
+
+    def ensure(self, slot: int, n_tokens: int) -> list[int]:
+        """Allocate blocks so the row can hold ``n_tokens`` tokens; returns
+        the newly allocated ids (table entries already set)."""
+        need = -(-int(n_tokens) // self.bs)     # ceil
+        if need > self.T:
+            raise ValueError(
+                f"paged arena: row needs {need} blocks > table width "
+                f"{self.T}")
+        new = []
+        for bi in range(need):
+            if self.table[slot, bi] == 0:
+                bid = self.alloc()
+                self.table[slot, bi] = bid
+                self.owned[slot].append(bid)
+                new.append(bid)
+        return new
+
+    def release(self, slot: int) -> list[int]:
+        """Free a row: drop one reference on every block it holds, clear
+        its table row.  Returns the block ids whose refcount hit zero."""
+        freed = self.ref_dec(self.owned[slot])
+        self.owned[slot] = []
+        self.table[slot, :] = 0
+        self.len[slot] = 0
+        self.live[slot] = False
+        return freed
+
+    # ---- observability ----
+    def occupancy(self) -> dict:
+        allocated = self.nb - 1 - len(self.free)
+        shared = int((self.ref[1:] > 1).sum())
+        return {"live_tokens": int(self.len[self.live].sum()),
+                "allocated_blocks": int(allocated),
+                "shared_blocks": shared,
+                "free_blocks": len(self.free),
+                "total_blocks": self.nb - 1,
+                "block_size": self.bs}

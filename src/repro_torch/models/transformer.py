@@ -2,18 +2,24 @@
 
 Entry points from one parameter tree:
 
-  prefill  tokens -> last-token logits (B, V) + KV cache
-  decode   one token + cache -> logits (B, V) + cache (updated in place)
+  prefill        tokens -> last-token logits (B, V) + KV cache
+  decode         one token + cache -> logits (B, V) + cache (updated in
+                 place)
+  decode_paged   one token per row against shared block pools (updated in
+                 place) -> logits (B, V)
+  prefill_paged  one chunk of one row's prompt into the block pools ->
+                 logits of its last real token (1, V)
 
-The JAX package's training forward, MoE, M-RoPE, int8 KV and paged entry
-points are not ported yet.
+The JAX package's training forward, MoE, M-RoPE and int8 KV are not ported
+yet.
 """
 from __future__ import annotations
 
 import torch
 
 from ..configs.base import ModelConfig
-from .attention import attn_decode, attn_full, attn_init
+from .attention import (attn_decode, attn_decode_paged, attn_full,
+                        attn_init, attn_prefill_paged)
 from .layers import (embed_apply, embed_init, mlp_apply, mlp_init,
                      ragged_positions, rms_norm)
 from .stacking import scan_layers
@@ -128,3 +134,61 @@ def lm_decode(p, cfg: ModelConfig, cache, tokens, attn_impl: str = "auto"):
     x, _ = scan_layers(body, x, (p["layers"], cache["k"], cache["v"]))
     logits = _logits(p, cfg, x[:, -1])
     return logits, {**cache, "idx": idx + 1}
+
+
+# -------------------------------------------------- paged (block-table) ----
+
+def lm_decode_paged(p, cfg: ModelConfig, pool_k, pool_v, table, lens, live,
+                    tokens, attn_impl: str = "auto"):
+    """One decode step against a shared block pool.
+
+    tokens (B,1); pool_k/pool_v (L,NB,BS,Hkv,D); table (B,T) int32;
+    lens (B,) int32 resident tokens per row; live (B,) bool.  Each row's new
+    K/V lands at logical column ``lens[b]`` through its table (dead rows
+    write the trash block), in place.  Returns (logits (B,V), pool_k,
+    pool_v) — per-row lens/table bookkeeping is the host's job (block
+    refcounts live there).
+    """
+    x = _embed_in(p, cfg, tokens)
+
+    def body(x, xs):
+        lp, pk, pv = xs
+        h = rms_norm(x, lp["ln1"], cfg.rms_eps)
+        h, _, _ = attn_decode_paged(lp["attn"], h, pk, pv, table, lens, live,
+                                    window=cfg.window,
+                                    rope_theta=cfg.rope_theta,
+                                    impl=attn_impl)
+        x = x + h
+        h = _ffn(lp, cfg, rms_norm(x, lp["ln2"], cfg.rms_eps))
+        return x + h, None
+
+    x, _ = scan_layers(body, x, (p["layers"], pool_k, pool_v))
+    return _logits(p, cfg, x[:, -1]), pool_k, pool_v
+
+
+def lm_prefill_paged_chunk(p, cfg: ModelConfig, tokens, pool_k, pool_v,
+                           table, m: int, n_real: int,
+                           attn_impl: str = "auto"):
+    """One chunk of continued prefill for a single row (B == 1).
+
+    tokens (1,C) right-padded, n_real real; ``m`` tokens of the row are
+    already resident in the pool, so this chunk covers logical columns
+    [m, m + n_real).  Returns (last-real-token logits (1,V), pools).
+    Chaining chunks with growing m gives a monolithic prefill's logits
+    and cache: the attention kernel walks the same tiles either way.
+    """
+    x = _embed_in(p, cfg, tokens)
+
+    def body(x, xs):
+        lp, pk, pv = xs
+        h = rms_norm(x, lp["ln1"], cfg.rms_eps)
+        h, _, _ = attn_prefill_paged(lp["attn"], h, pk, pv, table, m,
+                                     n_real, window=cfg.window,
+                                     rope_theta=cfg.rope_theta,
+                                     impl=attn_impl)
+        x = x + h
+        h = _ffn(lp, cfg, rms_norm(x, lp["ln2"], cfg.rms_eps))
+        return x + h, None
+
+    x, _ = scan_layers(body, x, (p["layers"], pool_k, pool_v))
+    return _logits(p, cfg, x[:, n_real - 1]), pool_k, pool_v

@@ -4,16 +4,21 @@ On the CPU the port's ops run their plain PyTorch versions; they are held
 against the JAX Pallas kernels in interpret mode and against the JAX
 oracles, on the same inputs made from a numpy seed, with the tolerances of
 ``tests/test_kernels.py`` (2e-5 in f32, 2e-2 in bf16).  The tests marked
-``cuda`` hold the CUDA kernels against the plain versions and skip without
-a card.
+``cuda`` hold the CUDA kernels against the plain versions, and the paged
+decode kernel bitwise against the contiguous one on the same logical keys;
+they skip without a card.
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.kernels.decode_attention import (decode_attention,
+                                                  decode_attention_paged,
+                                                  decode_attention_paged_ref,
                                                   decode_attention_ref,
-                                                  flash_decode_bshd)
+                                                  flash_decode_bshd,
+                                                  flash_decode_paged_bshd,
+                                                  pool_from_contiguous)
 from repro_torch.kernels.flash_attention import (attention, attention_ref,
                                                  attention_xla,
                                                  flash_attention_bshd)
@@ -250,10 +255,24 @@ def test_decode_filler_rows_output_zero_and_dispatch_is_plain():
 
 @pytest.mark.cuda
 def test_cuda_attention_with_kv_len_raises(cuda):
+    """A kv_len of the wrong type, device or shape raises."""
     q = torch.zeros((1, 4, 2, 16), device=cuda)
-    with pytest.raises(NotImplementedError, match="kv_len"):
-        attention(q, q, q, kv_len=torch.tensor([4], dtype=torch.int32,
-                                               device=cuda))
+    for bad in (torch.tensor([4], dtype=torch.int64, device=cuda),
+                torch.tensor([4], dtype=torch.int32),
+                torch.tensor([4, 4], dtype=torch.int32, device=cuda)):
+        with pytest.raises(ValueError, match="kv_len"):
+            attention(q, q, q, kv_len=bad)
+
+
+@pytest.mark.cuda
+def test_cuda_attention_with_kv_len_launches_the_kernel(cuda):
+    """A good kv_len on a CUDA tensor runs kernel 1, with no fallback."""
+    q = torch.zeros((1, 4, 2, 16), device=cuda)
+    before = flash_attention_bshd.launches
+    out = attention(q, q, q, kv_len=torch.tensor([4], dtype=torch.int32,
+                                                 device=cuda))
+    assert flash_attention_bshd.launches == before + 1
+    assert torch.isfinite(out).all()
 
 
 @pytest.mark.cuda
@@ -297,3 +316,104 @@ def test_cuda_decode_kernel_matches_plain(cuda, b, skv, hq, hkv, d, window,
                                kv_start=starts)
     np.testing.assert_allclose(_np(out.cpu()), _np(ref.cpu()),
                                **_tol(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("sq,skv,q_offset,lens", [
+    (64, 256, 100, [164, 130]),
+    (100, 512, 0, [100, 37]),
+    (16, 1024, 1000, [1016, 1010]),
+])
+def test_cuda_flash_kernel_kv_len_matches_plain(cuda, dtype, sq, skv,
+                                                q_offset, lens):
+    """A prefill chunk at q_offset against a wider view masked at kv_len."""
+    g = torch.Generator(device=cuda).manual_seed(6)
+    dt = TORCH_DT[dtype]
+    q = torch.randn((2, sq, 15, 64), generator=g, device=cuda).to(dt)
+    k, v = (torch.randn((2, skv, 5, 64), generator=g, device=cuda).to(dt)
+            for _ in range(2))
+    kl = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    before = flash_attention_bshd.launches
+    out = attention(q, k, v, causal=True, q_offset=q_offset, kv_len=kl)
+    assert flash_attention_bshd.launches == before + 1
+    ref = attention_ref(q, k, v, causal=True, q_offset=q_offset, kv_len=kl)
+    np.testing.assert_allclose(_np(out.cpu()), _np(ref.cpu()),
+                               **_tol(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("bs", [1, 4, 16, 48, 64])
+@pytest.mark.parametrize("hq,hkv,d,window", [(15, 5, 64, 0), (3, 1, 20, 0),
+                                             (8, 2, 64, 40)])
+def test_cuda_paged_decode_kernel_matches_plain(cuda, dtype, bs, hq, hkv, d,
+                                                window):
+    """Ragged kv_len (one row 0), a scrambled table with a trash tail."""
+    g = torch.Generator(device=cuda).manual_seed(7)
+    dt = TORCH_DT[dtype]
+    b, skv = 4, 192
+    q = torch.randn((b, hq, d), generator=g, device=cuda).to(dt)
+    k, v = (torch.randn((b, skv, hkv, d), generator=g, device=cuda).to(dt)
+            for _ in range(2))
+    lens = torch.tensor([192, 0, 77, 1], dtype=torch.int32, device=cuda)
+    pool_k, pool_v, table = pool_from_contiguous(k, v, bs, lens=lens,
+                                                 generator=g)
+    before = flash_decode_paged_bshd.launches
+    out = decode_attention_paged(q, pool_k, pool_v, table, lens,
+                                 window=window)
+    assert flash_decode_paged_bshd.launches == before + 1
+    ref = decode_attention_paged_ref(q, pool_k, pool_v, table, lens,
+                                     window=window)
+    np.testing.assert_allclose(_np(out.cpu()), _np(ref.cpu()),
+                               **_tol(dtype))
+    assert (out[1] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("bs", [16, 48])
+@pytest.mark.parametrize("left_pad", [0, 5, 100])
+def test_cuda_paged_decode_bitwise_equals_contiguous_kernel(cuda, dtype, bs,
+                                                            left_pad):
+    """The serving contract: on the same logical keys the paged kernel gives
+    the contiguous kernel's bits — on the gathered view (left_pad 0), and on
+    the keys placed after a left pad with kv_start (how a solo wave holds
+    them)."""
+    g = torch.Generator(device=cuda).manual_seed(8)
+    dt = TORCH_DT[dtype]
+    b, skv, hq, hkv, d = 3, 320, 15, 5, 64
+    q = torch.randn((b, hq, d), generator=g, device=cuda).to(dt)
+    k, v = (torch.randn((b, skv, hkv, d), generator=g, device=cuda).to(dt)
+            for _ in range(2))
+    lens = torch.tensor([320, 250, 33], dtype=torch.int32, device=cuda)
+    pool_k, pool_v, table = pool_from_contiguous(k, v, bs, lens=lens,
+                                                 generator=g)
+    for window in (0, 70):
+        paged = decode_attention_paged(q, pool_k, pool_v, table, lens,
+                                       window=window)
+        padded_k = torch.cat([k.new_zeros((b, left_pad, hkv, d)), k], 1)
+        padded_v = torch.cat([v.new_zeros((b, left_pad, hkv, d)), v], 1)
+        start = torch.full((b,), left_pad, dtype=torch.int32, device=cuda)
+        contig = decode_attention(q, padded_k, padded_v, lens + left_pad,
+                                  window=window,
+                                  kv_start=start if left_pad else None)
+        assert torch.equal(paged, contig), (window, left_pad)
+
+
+@pytest.mark.cuda
+def test_cuda_paged_decode_wrapper_rejects(cuda):
+    q = torch.zeros((2, 6, 32), device=cuda)
+    pool = torch.zeros((5, 4, 2, 32), device=cuda)
+    lens = torch.tensor([3, 0], dtype=torch.int32, device=cuda)
+    table = torch.zeros((2, 4), dtype=torch.int32, device=cuda)
+    for bad in (table.long(), table.cpu(), table.t(), table[:1]):
+        with pytest.raises(ValueError, match="table"):
+            flash_decode_paged_bshd(q, pool, pool, bad, lens)
+    with pytest.raises(TypeError, match="float64"):
+        flash_decode_paged_bshd(q, pool.double(), pool, table, lens)
+    with pytest.raises(ValueError, match="kv_len"):
+        flash_decode_paged_bshd(q, pool, pool, table, lens.long())
+    with pytest.raises(ValueError, match="group"):
+        flash_decode_paged_bshd(torch.zeros((2, 18, 32), device=cuda),
+                                pool, pool, table, lens)
