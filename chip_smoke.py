@@ -16,15 +16,21 @@ Phases, each raising on failure (the script then exits nonzero):
              trash tail) and BITWISE against the contiguous decode kernel
              on the same logical keys (gathered, left-padded with
              ``kv_start``, block sizes 16 and 48, D 20, a window); the
-             prefill kernel with ``kv_len`` at a chunk shape.  Time the
-             kernel, the plain version and one PyTorch library call
+             prefill kernel with ``kv_len`` at a chunk shape.  The SSD scan
+             kernel (f32 at 2e-4, bf16 at 2e-2) at the zamba2-2.7b serving
+             shape with ``start``, at S 200, 1 and 64 (chunk 128), G 2
+             over 4 heads, a given ``h0`` and the zamba2-smoke shape, and
+             BITWISE: one row's y and final state after left pads of 0, 31
+             and 415 with ``start``.  Kernels 1 and 2 at the shared
+             attention's (32, 32, 80).  Time each kernel, its plain version
+             and one PyTorch library call where there is one
              (``scaled_dot_product_attention``, timed only, never used by
-             the port).
+             the port; none computes the SSD scan).
 3. serve   — ``smollm-360m`` at full width in bf16 with random weights from
              ``torch.Generator().manual_seed(0)``: a wave of 8 ragged
              requests and a wave of 3 with filler rows, through
-             ``pack_prompts`` and ``make_generate_fn``.  Both kernels'
-             launch counts must move by exactly the expected amounts.
+             ``pack_prompts`` and ``make_generate_fn``.  Every kernel's
+             launch count must move by exactly the expected amount.
 5. paged   — paged KV serving of ``smollm-360m`` at full width in bf16
              through ``engine_paged_prefill`` / ``engine_paged_decode``:
              8 slots, block size 16, table width 64, 512 blocks, a prefill
@@ -32,12 +38,22 @@ Phases, each raising on failure (the script then exits nonzero):
              (the wave's 8, repeats of two, two sharing a 160-token head),
              the last 4 admitted into freed slots.  The launch counts must
              be exact (prefill kernel 32 per chunk forward, paged decode
-             kernel 32 per step, contiguous decode kernel 0).
+             kernel 32 per step, contiguous decode and SSD kernels 0).
 4. check   — in f32: prefill logits with the kernels against the plain
              path (1e-3), greedy tokens of each request served alone equal
              to those served packed, and the 12 requests served paged equal
              to each served alone.  Phase 5 runs before phase 4 (it needs
              the bf16 weights).
+6. hybrid  — ``zamba2-2.7b`` (54 Mamba2 layers, d_model 2560, a shared
+             attention block every 6 layers) at full width in bf16 with
+             random weights from a CUDA ``torch.Generator`` seeded 0: the
+             two waves of phase 3.  Launch counts must be exact (SSD kernel
+             54 per prefill, prefill kernel 9 per prefill, decode kernel 9
+             per decode step, paged decode kernel 0).  bf16 solo ==
+             packed is measured (solo as a batch of 1 and pinned to 8
+             rows), not asserted.  Then phase 4's f32 checks for the
+             hybrid: prefill logits with the kernels against the plain
+             path (1e-3) and every request solo == packed.
 
 It prints the card's name and power limit, then one JSON line of kernel
 numbers, then as its last line ``{"ok": true, "device": {...}}``.  Without a
@@ -58,6 +74,7 @@ HBM_BYTES_PER_S = 3.35e12                   # H100 SXM data sheet
 PEAK_FLOPS = {"bfloat16": 989e12,           # dense tensor cores
               "float32": 67e12}             # CUDA cores, no TF32
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+SSD_TOL = {"float32": 2e-4, "bfloat16": 2e-2}   # tests/test_kernels.py's SSD
 MAX_NEW = 32
 WAVE_LENGTHS = (1, 64, 97, 160, 233, 311, 420, 512)
 # paged serving (phase 5): slots, block size, table width, pool blocks,
@@ -207,11 +224,6 @@ def _wave_starts(s):
 
 def phase_kernels(cfg, device):
     import torch
-    import torch.nn.functional as F
-    from repro_torch.kernels.decode_attention import (decode_attention_ref,
-                                                      flash_decode_bshd)
-    from repro_torch.kernels.flash_attention import (attention_xla,
-                                                     flash_attention_bshd)
     gen = torch.Generator(device=device).manual_seed(1)
     hq, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     bf16, f32 = torch.bfloat16, torch.float32
@@ -255,12 +267,30 @@ def phase_kernels(cfg, device):
             print(f"[kernels] decode {kw} {dt}: max err {e:.3g}")
 
     # times at the serving shapes in bf16 (the last `main` / `dmain`)
+    fa, dec = _attn_serving_times(main, dmain, starts, cap, lens)
+    fa["max_abs_err"], dec["max_abs_err"] = errs["flash"], errs["decode"]
+    return fa, dec
+
+
+def _attn_serving_times(main, dmain, starts, cap, lens):
+    """Kernels 1 and 2, their plain versions and the library call, timed at
+    a wave's serving shapes (``main`` from ``_prefill_case``, ``dmain`` from
+    ``_decode_case``), beside their bounds."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention import (decode_attention_ref,
+                                                      flash_decode_bshd)
+    from repro_torch.kernels.flash_attention import (attention_xla,
+                                                     flash_attention_bshd)
     q, k, v, ks = main
+    b, s, hq, d = q.shape
+    hkv = k.shape[2]
+    device = q.device
     cols = torch.arange(s, device=device)
     mask = ((cols[None, :] <= cols[:, None])[None]
             & (cols[None, None, :] >= ks[:, None, None]))      # (B,S,S)
     pairs = int(mask.sum())
-    live_rows = sum(WAVE_LENGTHS)
+    live_rows = sum(s - st for st in starts)
     es = q.element_size()
     fa_bytes = es * (live_rows * (hq + 2 * hkv) * d + b * s * hq * d)
     fa_bound, fa_by, *fa_parts = _bound(fa_bytes, 4 * pairs * hq * d,
@@ -271,7 +301,7 @@ def phase_kernels(cfg, device):
         "plain_ms": _time_ms(lambda: attention_xla(q, k, v, kv_start=ks)),
         "library_ms": _time_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, attn_mask=mask[:, None], enable_gqa=True)),
-        "bound_ms": fa_bound, "bound_by": fa_by, "max_abs_err": errs["flash"],
+        "bound_ms": fa_bound, "bound_by": fa_by,
     }
     q, k, v, kl, ks = dmain
     valid = sum(max(0, min(n, cap) - st) for n, st in zip(lens, starts))
@@ -289,14 +319,13 @@ def phase_kernels(cfg, device):
         "library_ms": _time_ms(lambda: F.scaled_dot_product_attention(
             q4, kt, vt, attn_mask=dmask, enable_gqa=True)),
         "bound_ms": dec_bound, "bound_by": dec_by,
-        "max_abs_err": errs["decode"],
     }
     for name, r, (t_bytes, t_ops) in (("flash", fa, fa_parts),
                                        ("decode", dec, dec_parts)):
-        print(f"[kernels] {name} bf16 serving shape: kernel {r['ms']:.4f} ms"
-              f", plain {r['plain_ms']:.4f} ms, library "
-              f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms "
-              f"({r['bound_by']}; bytes {t_bytes:.5f} ms, operations "
+        print(f"[kernels] {name} bf16 serving shape hq{hq}/{hkv} d{d}: "
+              f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+              f"library {r['library_ms']:.4f} ms, bound {r['bound_ms']:.5f} "
+              f"ms ({r['bound_by']}; bytes {t_bytes:.5f} ms, operations "
               f"{t_ops:.5f} ms)")
     return fa, dec
 
@@ -451,7 +480,205 @@ def phase_kernels_paged(cfg, device):
     return paged, chunk
 
 
+def _ssd_case(gen, device, dtype, b, s, h, p, g, n, chunk, *, starts=None,
+              with_h0=False, zamba2_rates=False):
+    """Kernel 4 against the plain chunked version on one input.  Steps
+    before a row's ``starts`` entry are zeroed (x, dt, B, C), as the Mamba2
+    block zeroes left pad, and the kernel is given them as ``start``.
+    dt is drawn in [0.01, 0.2] and A in [-2, -0.5]; with ``zamba2_rates``
+    dt is softplus(N(0, 0.88)) and A = -linspace(0.5, 8, H), as in
+    zamba2-2.7b, where the running sum of dt·A falls several hundred below
+    zero within a chunk."""
+    import torch
+    from repro_torch.kernels.mamba2_ssd import ssd, ssd_chunked_bshp
+    x = _randn(gen, (b, s, h, p), dtype, device)
+    if zamba2_rates:
+        dt = torch.nn.functional.softplus(torch.randn(
+            (b, s, h), generator=gen, device=device) * 0.88).to(dtype)
+        A = -torch.linspace(0.5, 8.0, h, device=device)
+    else:
+        dt = (torch.rand((b, s, h), generator=gen, device=device) * 0.19
+              + 0.01).to(dtype)
+        A = -(torch.rand((h,), generator=gen, device=device) * 1.5 + 0.5)
+    bm = _randn(gen, (b, s, g, n), dtype, device)
+    cm = _randn(gen, (b, s, g, n), dtype, device)
+    h0 = (torch.randn((b, h, p, n), generator=gen, device=device)
+          if with_h0 else None)
+    st = None
+    if starts is not None:
+        st = torch.tensor(starts, dtype=torch.int32, device=device)
+        real = torch.arange(s, device=device)[None, :] >= st[:, None]
+        x, dt, bm, cm = (t * real.view(b, s, *(1,) * (t.dim() - 2)).to(dtype)
+                         for t in (x, dt, bm, cm))
+    y, hl = ssd_chunked_bshp(x, dt, A, bm, cm, h0, chunk=chunk, start=st)
+    yp, hp = ssd(x, dt, A, bm, cm, h0, chunk=chunk, impl="chunked")
+    torch.cuda.synchronize()
+    if not (torch.isfinite(y.float()).all() and torch.isfinite(hl).all()):
+        raise AssertionError("ssd kernel: non-finite output")
+    err = max(_max_err(y, yp), _max_err(hl, hp))
+    tol = SSD_TOL[str(dtype).split(".")[-1]]
+    if not (torch.allclose(y.float(), yp.float(), rtol=tol, atol=tol)
+            and torch.allclose(hl, hp, rtol=tol, atol=tol)):
+        raise AssertionError(
+            f"ssd kernel vs plain: max err {err:.3g} > {tol} at b{b} s{s} "
+            f"h{h} p{p} g{g} n{n} chunk {chunk} {dtype} start {starts} "
+            f"h0 {with_h0}")
+    if y.dtype != x.dtype or hl.dtype != torch.float32:
+        raise AssertionError(f"ssd kernel dtypes {y.dtype}, {hl.dtype}")
+    return (x, dt, A, bm, cm, st), err
+
+
+def _ssd_bitwise(gen, device, dtype, *, n_real, pads, h, p, n, chunk):
+    """One row of ``n_real`` steps after left pads of each length in
+    ``pads``, with ``start`` set: kernel 4's y at the real steps and its
+    final state must be the same bits for every pad."""
+    import torch
+    from repro_torch.kernels.mamba2_ssd import ssd_chunked_bshp
+    x = _randn(gen, (1, n_real, h, p), dtype, device)
+    dt = (torch.rand((1, n_real, h), generator=gen, device=device) * 0.19
+          + 0.01).to(dtype)
+    A = -(torch.rand((h,), generator=gen, device=device) * 1.5 + 0.5)
+    bm = _randn(gen, (1, n_real, 1, n), dtype, device)
+    cm = _randn(gen, (1, n_real, 1, n), dtype, device)
+    outs = []
+    for pad in pads:
+        padded = [torch.cat([t.new_zeros((1, pad, *t.shape[2:])), t], 1)
+                  for t in (x, dt, bm, cm)]
+        st = torch.tensor([pad], dtype=torch.int32, device=device)
+        y, hl = ssd_chunked_bshp(*padded[:2], A, *padded[2:], chunk=chunk,
+                                 start=st)
+        if pad and bool(y[:, :pad].float().abs().max() > 0):
+            raise AssertionError(f"ssd kernel: y is not 0 at the left pad "
+                                 f"({pad})")
+        outs.append((y[:, pad:], hl))
+    torch.cuda.synchronize()
+    for pad, (y, hl) in zip(pads[1:], outs[1:]):
+        if not (torch.equal(y, outs[0][0]) and torch.equal(hl, outs[0][1])):
+            raise AssertionError(
+                f"ssd kernel: left pad {pad} changed the row's bits (vs "
+                f"pad {pads[0]}); max diff y {_max_err(y, outs[0][0]):.3g}, "
+                f"state {_max_err(hl, outs[0][1]):.3g} ({dtype})")
+    return len(pads)
+
+
+def _ssd_bound(x, dt, bm, st, chunk):
+    """(bound ms, by, bytes ms, ops ms) of one kernel-4 call: the real steps
+    of x, dt, B and C read once, y and the final state written once; the
+    flops of the chunks that hold real steps (causal scores and y, the
+    state readout and update)."""
+    b, s, h, p = x.shape
+    g, n = bm.shape[2:]
+    starts = st.tolist() if st is not None else [0] * b
+    es = x.element_size()
+    real = sum(s - v for v in starts)
+    nbytes = (es * (real * (h * p + h + 2 * g * n) + b * s * h * p)
+              + 4 * (b * h * p * n + h + b))
+    flops = 0
+    for v in starts:
+        for c0 in range(v, s, chunk):
+            nv = min(chunk, s - c0)
+            flops += h * (nv * (nv + 1) * (n + p) + 4 * nv * n * p)
+    return _bound(nbytes, flops, "bfloat16")
+
+
+def phase_kernels_hybrid(hcfg, device):
+    """Kernel 4 (SSD) against its plain version and bitwise under left pad;
+    kernels 1 and 2 at the shared attention's shapes; times at the
+    zamba2-2.7b serving shapes."""
+    import torch
+    from repro_torch.kernels.mamba2_ssd import ssd, ssd_chunked_bshp
+    gen = torch.Generator(device=device).manual_seed(3)
+    ssm = hcfg.ssm
+    h, p, n, chunk = (ssm.expand * hcfg.d_model // ssm.head_dim,
+                      ssm.head_dim, ssm.state_dim, ssm.chunk)
+    b, s = len(WAVE_LENGTHS), max(WAVE_LENGTHS)
+    starts = _wave_starts(s)
+    errs = {"ssd": 0.0, "flash": 0.0, "decode": 0.0}
+    for dt in (torch.float32, torch.bfloat16):
+        main, e = _ssd_case(gen, device, dt, b, s, h, p, 1, n, chunk,
+                            starts=starts)
+        errs["ssd"] = max(errs["ssd"], e)
+        print(f"[kernels] ssd b{b} s{s} h{h} p{p} n{n} chunk {chunk} start "
+              f"{dt}: max err {e:.3g}")
+        _, e = _ssd_case(gen, device, dt, b, s, h, p, 1, n, chunk,
+                         starts=starts, zamba2_rates=True)
+        errs["ssd"] = max(errs["ssd"], e)
+        print(f"[kernels] ssd b{b} s{s} h{h} p{p} n{n} chunk {chunk} start, "
+              f"zamba2 decay rates {dt}: max err {e:.3g}")
+        for kw in (dict(b=2, s=200, h=8, p=p, g=1, n=n, chunk=chunk),
+                   dict(b=2, s=1, h=8, p=p, g=1, n=n, chunk=chunk),
+                   dict(b=2, s=64, h=8, p=p, g=1, n=n, chunk=chunk),
+                   dict(b=2, s=100, h=4, p=32, g=2, n=32, chunk=32),
+                   dict(b=2, s=130, h=4, p=p, g=1, n=n, chunk=64,
+                        with_h0=True),
+                   dict(b=3, s=40, h=16, p=8, g=1, n=16, chunk=16,
+                        starts=[0, 9, 40])):
+            _, e = _ssd_case(gen, device, dt, **kw)
+            print(f"[kernels] ssd {kw} {dt}: max err {e:.3g}")
+        nb = _ssd_bitwise(gen, device, dt, n_real=97, pads=(0, 31, 415),
+                          h=h, p=p, n=n, chunk=chunk)
+        print(f"[kernels] ssd left pad 0, 31, 415 with start: y and final "
+              f"state bitwise equal ({nb} layouts, {dt})")
+
+        # kernels 1 and 2 at the shared attention's shapes
+        hq, hkv, d = hcfg.n_heads, hcfg.n_kv_heads, hcfg.head_dim
+        amain, e = _prefill_case(gen, device, dt, b, s, hq, hkv, d, starts)
+        errs["flash"] = max(errs["flash"], e)
+        print(f"[kernels] flash b{b} s{s} hq{hq}/{hkv} d{d} {dt}: max err "
+              f"{e:.3g}")
+        cap = 1 << (s + MAX_NEW - 1).bit_length()
+        lens = [s + MAX_NEW // 2] * b
+        dmain, e = _decode_case(gen, device, dt, b, cap, hq, hkv, d, starts,
+                                lens)
+        errs["decode"] = max(errs["decode"], e)
+        print(f"[kernels] decode b{b} skv{cap} hq{hq}/{hkv} d{d} {dt}: max "
+              f"err {e:.3g}")
+        _, e = _decode_case(gen, device, dt, 2, 300, hq, hkv, d, [0, 40],
+                            [300, 177])
+        print(f"[kernels] decode b2 skv300 hq{hq}/{hkv} d{d} {dt}: max err "
+              f"{e:.3g}")
+
+    # times at the serving shapes in bf16 (the last cases of the loop)
+    x, dt, A, bm, cm, st = main
+    bound, by, t_bytes, t_ops = _ssd_bound(x, dt, bm, st, chunk)
+    ssd_r = {
+        "ms": _time_ms(lambda: ssd_chunked_bshp(x, dt, A, bm, cm,
+                                                chunk=chunk, start=st)),
+        "plain_ms": _time_ms(lambda: ssd(x, dt, A, bm, cm, chunk=chunk,
+                                         impl="chunked")),
+        "library_ms": None,
+        "library_note": "none: no single PyTorch call computes the SSD scan",
+        "bound_ms": bound, "bound_by": by, "max_abs_err": errs["ssd"],
+    }
+    print(f"[kernels] ssd bf16 serving shape: kernel {ssd_r['ms']:.4f} ms, "
+          f"plain {ssd_r['plain_ms']:.4f} ms, library none, bound "
+          f"{bound:.5f} ms ({by}; bytes {t_bytes:.5f} ms, operations "
+          f"{t_ops:.5f} ms)")
+    fa, dec = _attn_serving_times(amain, dmain, starts, cap, lens)
+    fa["max_abs_err"], dec["max_abs_err"] = errs["flash"], errs["decode"]
+    return ssd_r, fa, dec
+
+
 # ------------------------------------------------------------ phase 3 ----
+
+def _kernels():
+    """{name: wrapper} of every kernel; each wrapper counts its launches."""
+    from repro_torch.kernels.decode_attention import (
+        flash_decode_bshd, flash_decode_paged_bshd)
+    from repro_torch.kernels.flash_attention import flash_attention_bshd
+    from repro_torch.kernels.mamba2_ssd import ssd_chunked_bshp
+    return {"flash": flash_attention_bshd, "decode": flash_decode_bshd,
+            "paged": flash_decode_paged_bshd, "ssd": ssd_chunked_bshp}
+
+
+def _zero_launches():
+    for fn in _kernels().values():
+        fn.launches = 0
+
+
+def _read_launches():
+    return {name: fn.launches for name, fn in _kernels().items()}
+
 
 def wave_prompts(cfg, seed=0):
     import numpy as np
@@ -462,11 +689,15 @@ def wave_prompts(cfg, seed=0):
     return prompts
 
 
-def phase_serve(cfg, params, device):
+def _serve_waves(cfg, params, device, per_wave, label, *, repeats,
+                 solo_rows):
+    """The two waves of ``wave_prompts`` in bf16: exact launch counts
+    (``per_wave`` for each wave), tokens of the right shape and vocabulary,
+    the times (fastest of ``repeats``) and the device's busy share of one
+    prefill and one decode step.  bf16 solo == packed is an open question:
+    measured, not asserted, with each request alone as a batch of each of
+    ``solo_rows`` rows.  Returns (launches, {rows: solo tokens}, stats)."""
     import torch
-    from repro_torch.kernels.decode_attention import (
-        flash_decode_bshd, flash_decode_paged_bshd)
-    from repro_torch.kernels.flash_attention import flash_attention_bshd
     from repro_torch.models import build_model, grow_cache
     from repro_torch.runtime.server import make_generate_fn, pack_prompts
     prompts = wave_prompts(cfg)
@@ -477,62 +708,76 @@ def phase_serve(cfg, params, device):
     generate(params, *waves[0])          # warm-up: allocator, cuBLAS
     torch.cuda.synchronize()
 
-    flash_attention_bshd.launches = 0
-    flash_decode_bshd.launches = 0
-    flash_decode_paged_bshd.launches = 0
+    _zero_launches()
     outs = [generate(params, toks, lens) for toks, lens in waves]
     torch.cuda.synchronize()
-    launches = {"flash": flash_attention_bshd.launches,
-                "decode": flash_decode_bshd.launches,
-                "paged": flash_decode_paged_bshd.launches}
-    want = {"flash": cfg.n_layers * len(waves),
-            "decode": cfg.n_layers * (MAX_NEW - 1) * len(waves),
-            "paged": 0}
+    launches = _read_launches()
+    want = {k: v * len(waves) for k, v in per_wave.items()}
     if launches != want:
-        raise AssertionError(f"launch counts {launches} != expected {want}")
+        raise AssertionError(f"{cfg.name} launch counts {launches} != "
+                             f"expected {want}")
     for (toks, lens), out in zip(waves, outs):
         if tuple(out.shape) != (toks.shape[0], MAX_NEW):
             raise AssertionError(f"tokens shape {tuple(out.shape)}")
         if bool((out < 0).any() or (out >= cfg.vocab_size).any()):
             raise AssertionError("generated ids outside the vocabulary")
-    print(f"[serve] launches in the two waves: {launches}")
+    print(f"[{label}] launches in the two waves: {launches}")
 
     toks, lens = waves[0]
     prefill_ms = min(_wall_ms(lambda: first(params, toks, lens))
-                     for _ in range(3))
+                     for _ in range(repeats))
     wave_ms = min(_wall_ms(lambda: generate(params, toks, lens))
-                  for _ in range(3))
+                  for _ in range(repeats))
     decode_ms = (wave_ms - prefill_ms) / (MAX_NEW - 1)
     tok_s = len(prompts) * MAX_NEW / (wave_ms / 1e3)
-    print(f"[serve] smollm-360m bf16 wave of {len(prompts)} (B{toks.shape[0]}"
-          f" S{toks.shape[1]}, max_new {MAX_NEW}): prefill {prefill_ms:.2f}"
-          f" ms, decode {decode_ms:.3f} ms/step, wave {wave_ms:.1f} ms, "
-          f"{tok_s:.1f} tokens/s")
+    print(f"[{label}] {cfg.name} bf16 wave of {len(prompts)} (B"
+          f"{toks.shape[0]} S{toks.shape[1]}, max_new {MAX_NEW}): prefill "
+          f"{prefill_ms:.2f} ms, decode {decode_ms:.3f} ms/step, wave "
+          f"{wave_ms:.1f} ms, {tok_s:.1f} tokens/s")
 
     model = build_model(cfg, device)
     batch = {"tokens": torch.as_tensor(toks, device=device),
              "lengths": torch.as_tensor(lens, device=device)}
-    prof = {"prefill": _profile("prefill", lambda: model.prefill(
+    prof = {"prefill": _profile(f"{cfg.name} prefill", lambda: model.prefill(
         params, batch), prefill_ms)}
     logits, cache = model.prefill(params, batch)
     cache = grow_cache(cfg, cache, toks.shape[1] + MAX_NEW)
     tok = torch.argmax(logits, -1).to(torch.int32)[:, None]
-    prof["decode"] = _profile("decode step", lambda: model.decode(
+    prof["decode"] = _profile(f"{cfg.name} decode step", lambda: model.decode(
         params, cache, tok), decode_ms)
+    del cache
 
-    # bf16 invariance is an open question: measured, not asserted
-    solo = [generate(params, *pack_prompts([p], pad=cfg.pad_id))[0]
-            for p in prompts]
-    same = sum(bool((t == outs[0][i]).all()) for i, t in enumerate(solo))
-    print(f"[serve] bf16 solo == packed for {same}/{len(prompts)} requests")
-    return launches, solo, {"prefill_ms": prefill_ms, "decode_ms_per_step":
-                      decode_ms, "wave_ms": wave_ms, "tokens_per_s": tok_s,
-                      "bf16_solo_equal": same, "profile": prof}
+    stats = {"prefill_ms": prefill_ms, "decode_ms_per_step": decode_ms,
+             "wave_ms": wave_ms, "tokens_per_s": tok_s, "profile": prof}
+    solos = {}
+    for rows in solo_rows:
+        solos[rows] = [generate(params, *pack_prompts(
+            [p], pad=cfg.pad_id, min_rows=rows))[0] for p in prompts]
+        same = sum(bool((t == outs[0][i]).all())
+                   for i, t in enumerate(solos[rows]))
+        stats["bf16_solo_equal" if rows == 1
+              else f"bf16_solo_{rows}_rows_equal"] = same
+        print(f"[{label}] bf16 solo (batch of {rows}) == packed for "
+              f"{same}/{len(prompts)} requests")
+    return launches, solos, stats
+
+
+def phase_serve(cfg, params, device):
+    """smollm-360m wave serving in bf16; the decode steps run kernel 2.
+    Solo tokens (batch of 1) are returned for phase 5."""
+    per_wave = {"flash": cfg.n_layers,
+                "decode": cfg.n_layers * (MAX_NEW - 1), "paged": 0, "ssd": 0}
+    launches, solos, stats = _serve_waves(cfg, params, device, per_wave,
+                                          "serve", repeats=3, solo_rows=(1,))
+    return launches, solos[1], stats
 
 
 # ------------------------------------------------------------ phase 4 ----
 
-def phase_check(cfg32, params32, device):
+def _check_f32(cfg32, params32, device, plain_prefill):
+    """f32: the wave's prefill logits with the kernels against
+    ``plain_prefill(batch)`` (1e-3), and each request's greedy tokens served
+    alone equal to served packed.  Returns (max err, solo tokens)."""
     import torch
     from repro_torch.models import build_model
     from repro_torch.runtime.server import make_generate_fn, pack_prompts
@@ -541,15 +786,16 @@ def phase_check(cfg32, params32, device):
     batch = {"tokens": torch.as_tensor(toks, device=device),
              "lengths": torch.as_tensor(lens, device=device)}
     auto = build_model(cfg32, device).prefill(params32, batch)[0]
-    ref = build_model(cfg32.replace(attn_impl="ref"),
-                      device).prefill(params32, batch)[0]
+    plain = plain_prefill(batch)
     if not torch.isfinite(auto).all():
-        raise AssertionError("f32 prefill logits are not finite")
-    err = _max_err(auto, ref)
-    if not torch.allclose(auto, ref, rtol=1e-3, atol=1e-3):
-        raise AssertionError(f"f32 prefill logits, kernels vs plain: max "
-                             f"err {err:.3g} > 1e-3")
-    print(f"[check] f32 prefill logits kernels vs plain: max err {err:.3g}")
+        raise AssertionError(f"f32 {cfg32.name} prefill logits are not "
+                             "finite")
+    err = _max_err(auto, plain)
+    if not torch.allclose(auto, plain, rtol=1e-3, atol=1e-3):
+        raise AssertionError(f"f32 {cfg32.name} prefill logits, kernels vs "
+                             f"plain: max err {err:.3g} > 1e-3")
+    print(f"[check] f32 {cfg32.name} prefill logits kernels vs plain: max "
+          f"err {err:.3g}")
 
     generate = make_generate_fn(cfg32, MAX_NEW, device)
     packed = generate(params32, toks, lens)
@@ -557,12 +803,20 @@ def phase_check(cfg32, params32, device):
     for i, p in enumerate(prompts):
         solo = generate(params32, *pack_prompts([p], pad=cfg32.pad_id))[0]
         if not bool((solo == packed[i]).all()):
-            raise AssertionError(f"f32 request {i} (length {len(p)}): solo "
-                                 f"tokens differ from packed")
+            raise AssertionError(f"f32 {cfg32.name} request {i} (length "
+                                 f"{len(p)}): solo tokens differ from packed")
         solos.append(solo)
-    print(f"[check] f32 greedy tokens: {len(prompts)} requests solo == "
-          "packed")
+    print(f"[check] f32 {cfg32.name} greedy tokens: {len(prompts)} requests "
+          "solo == packed")
     return err, solos
+
+
+def phase_check(cfg32, params32, device):
+    """smollm-360m in f32 against the plain attention."""
+    from repro_torch.models import build_model
+    plain = build_model(cfg32.replace(attn_impl="ref"), device)
+    return _check_f32(cfg32, params32, device,
+                      lambda batch: plain.prefill(params32, batch)[0])
 
 
 # ------------------------------------------------------------ phase 5 ----
@@ -657,21 +911,15 @@ def decode_at_full_slots(cfg, params, prompts, device):
 
 def phase_paged(cfg, params, device, solo_bf16):
     """Paged serving at full width in bf16; exact launch counts."""
-    from repro_torch.kernels.decode_attention import (
-        flash_decode_bshd, flash_decode_paged_bshd)
-    from repro_torch.kernels.flash_attention import flash_attention_bshd
     from repro_torch.runtime.server import make_generate_fn, pack_prompts
     prompts = paged_prompts(cfg)
     serve_paged(cfg, params, prompts[:2], device, "smoke-warm")
-    flash_attention_bshd.launches = 0
-    flash_decode_bshd.launches = 0
-    flash_decode_paged_bshd.launches = 0
+    _zero_launches()
     toks, st = serve_paged(cfg, params, prompts, device, "smoke-paged")
-    launches = {"flash": flash_attention_bshd.launches,
-                "decode": flash_decode_bshd.launches,
-                "paged": flash_decode_paged_bshd.launches}
+    launches = _read_launches()
     want = {"flash": cfg.n_layers * st["chunk_forwards"], "decode": 0,
-            "paged": cfg.n_layers * PAGED["k"] * st["decode_calls"]}
+            "paged": cfg.n_layers * PAGED["k"] * st["decode_calls"],
+            "ssd": 0}
     if launches != want:
         raise AssertionError(f"paged launch counts {launches} != expected "
                              f"{want}")
@@ -758,6 +1006,31 @@ def phase_check_paged(cfg32, params32, device, solo_f32):
           f"{st['decode_calls']} decode calls)")
 
 
+# ------------------------------------------------------------ phase 6 ----
+
+def phase_serve_hybrid(hcfg, params, device):
+    """zamba2-2.7b wave serving in bf16: kernel 4 in every Mamba2 layer's
+    prefill, kernels 1 and 2 in the shared attention.  bf16 solo == packed
+    is measured as a batch of 1 (as phase 3) and pinned to the wave's 8
+    rows, so that every GEMM of the decode steps has the packed shape."""
+    groups = hcfg.n_layers // hcfg.shared_attn_every
+    per_wave = {"ssd": hcfg.n_layers, "flash": groups,
+                "decode": groups * (MAX_NEW - 1), "paged": 0}
+    launches, _, stats = _serve_waves(
+        hcfg, params, device, per_wave, "hybrid", repeats=2,
+        solo_rows=(1, len(WAVE_LENGTHS)))
+    return launches, stats
+
+
+def phase_check_hybrid(hcfg32, params32, device):
+    """zamba2-2.7b in f32 against the plain attention and SSD."""
+    from repro_torch.models.hybrid import hybrid_forward
+    return _check_f32(hcfg32, params32, device, lambda batch: hybrid_forward(
+        params32, hcfg32, batch["tokens"], attn_impl="ref",
+        ssm_impl="chunked", last_only=True,
+        lengths=batch["lengths"])[0][:, -1])[0]
+
+
 # --------------------------------------------------------------- main ----
 
 def main() -> int:
@@ -780,8 +1053,10 @@ def main() -> int:
 
     phase_build()
     cfg = get_config("smollm-360m")
+    hcfg = get_config("zamba2-2.7b")
     fa, dec = phase_kernels(cfg, device)
     paged_k, fa_chunk = phase_kernels_paged(cfg, device)
+    ssd_k, fa_h, dec_h = phase_kernels_hybrid(hcfg, device)
 
     cfg32 = cfg.replace(param_dtype="float32", compute_dtype="float32")
     t = time.perf_counter()
@@ -795,28 +1070,50 @@ def main() -> int:
     del params
     _, solo_f32 = phase_check(cfg32, params32, device)
     phase_check_paged(cfg32, params32, device, solo_f32)
+    del params32
 
-    by_path = {name: {"wave": launches[name],
-                      "paged": paged_launches[name]} for name in launches}
+    hcfg32 = hcfg.replace(param_dtype="float32", compute_dtype="float32")
+    t = time.perf_counter()
+    params32 = build_model(hcfg32, device).init(
+        torch.Generator(device=device).manual_seed(0))
+    params = _cast(params32, torch.bfloat16)
+    torch.cuda.synchronize()
+    print(f"[init] {hcfg.name} random weights in "
+          f"{time.perf_counter() - t:.1f} s")
+    hybrid_launches, hybrid = phase_serve_hybrid(hcfg, params, device)
+    del params
+    torch.cuda.empty_cache()
+    hybrid["f32_logits_max_err"] = phase_check_hybrid(hcfg32, params32,
+                                                      device)
+    del params32
+
+    by_path = {name: {"wave": launches[name], "paged": paged_launches[name],
+                      "hybrid": hybrid_launches[name]} for name in launches}
     kernels = [
         dict(name="flash_attention_bshd", route="cuda",
              source="src/repro_torch/csrc/flash_attention.cu",
              replaces="src/repro/kernels/flash_attention/kernel.py:95",
              launches=sum(by_path["flash"].values()),
              launches_by_path=by_path["flash"], **fa,
-             at_chunk_shape=fa_chunk),
+             at_chunk_shape=fa_chunk, at_hybrid_shape=fa_h),
         dict(name="flash_decode_bshd", route="cuda",
              source="src/repro_torch/csrc/decode_attention.cu",
              replaces="src/repro/kernels/decode_attention/kernel.py:82",
              launches=sum(by_path["decode"].values()),
-             launches_by_path=by_path["decode"], **dec),
+             launches_by_path=by_path["decode"], **dec,
+             at_hybrid_shape=dec_h),
         dict(name="flash_decode_paged_bshd", route="cuda",
              source="src/repro_torch/csrc/decode_attention.cu",
              replaces="src/repro/kernels/decode_attention/kernel.py:187",
              launches=sum(by_path["paged"].values()),
              launches_by_path=by_path["paged"], **paged_k),
+        dict(name="ssd_chunked_bshp", route="cuda",
+             source="src/repro_torch/csrc/mamba2_ssd.cu",
+             replaces="src/repro/kernels/mamba2_ssd/kernel.py:71",
+             launches=sum(by_path["ssd"].values()),
+             launches_by_path=by_path["ssd"], **ssd_k),
     ]
-    print(json.dumps({"serve": serve, "paged": paged}))
+    print(json.dumps({"serve": serve, "paged": paged, "hybrid": hybrid}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

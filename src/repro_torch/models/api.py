@@ -15,7 +15,7 @@ The paged-arena primitives (``paged_init_pool``, ``PagedArena``) serve
 ``runtime/engine.py``'s paged entry points.
 
 Everything runs on ``device`` — ``"cuda"`` unless the caller asks for the
-CPU.  Only the dense family is ported.
+CPU.  The dense and hybrid families are ported.
 """
 from __future__ import annotations
 
@@ -26,7 +26,7 @@ import numpy as np
 import torch
 
 from ..configs.base import ModelConfig
-from . import transformer
+from . import hybrid, transformer
 
 
 @dataclass
@@ -50,13 +50,16 @@ def resolve_device(device) -> torch.device:
 
 
 def build_model(cfg: ModelConfig, device="cuda") -> Model:
-    if cfg.family != "dense" or cfg.moe.n_experts:
+    if cfg.family not in ("dense", "hybrid") or cfg.moe.n_experts:
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
     if cfg.kv_quant != "none" or cfg.mrope_sections or cfg.embeds_input:
         raise NotImplementedError("int8 KV, M-RoPE and embedding inputs are "
                                   "not ported yet")
     dev = resolve_device(device)
     impl = cfg.attn_impl
+
+    if cfg.family == "hybrid":
+        return _build_hybrid(cfg, dev, impl)
 
     def prefill(p, batch):
         return transformer.lm_prefill(p, cfg, batch["tokens"],
@@ -69,6 +72,29 @@ def build_model(cfg: ModelConfig, device="cuda") -> Model:
     return Model(cfg, dev, lambda gen: transformer.lm_init(gen, cfg, dev),
                  prefill, decode,
                  lambda b, cap, **kw: transformer.lm_init_cache(
+                     cfg, b, cap, dev, **kw))
+
+
+def _build_hybrid(cfg: ModelConfig, dev, impl) -> Model:
+    """The hybrid facade.  Its prefill takes the SSD op's default impl,
+    "auto": the CUDA kernel on the card (the counterpart of the JAX
+    package's ``ssm_impl="pallas"``), the plain chunked form on the CPU."""
+    def prefill(p, batch):
+        tokens = batch["tokens"]
+        logits, (msts, (ck, cv)) = hybrid.hybrid_forward(
+            p, cfg, tokens, attn_impl=impl, collect_cache=True,
+            last_only=True, lengths=batch.get("lengths"))
+        cache = {"conv_x": msts["conv"][0], "conv_B": msts["conv"][1],
+                 "conv_C": msts["conv"][2], "ssd": msts["ssd"], "k": ck,
+                 "v": cv, "idx": tokens.shape[1], "start": msts["start"]}
+        return logits[:, -1], cache
+
+    def decode(p, cache, tokens):
+        return hybrid.hybrid_decode(p, cfg, cache, tokens, attn_impl=impl)
+
+    return Model(cfg, dev, lambda gen: hybrid.hybrid_init(gen, cfg, dev),
+                 prefill, decode,
+                 lambda b, cap, **kw: hybrid.hybrid_init_cache(
                      cfg, b, cap, dev, **kw))
 
 

@@ -13,6 +13,7 @@ import torch
 import torch.nn.functional as F
 
 _ERF2 = math.erf(2.0 / math.sqrt(2.0))
+_GLU = ("swiglu", "geglu")
 
 
 def dense_init(gen: torch.Generator, shape, dtype, device, *,
@@ -91,18 +92,21 @@ def apply_rope(x, positions, theta: float):
 
 def mlp_init(gen, d_model: int, d_ff: int, act: str, dtype, device,
              stack: tuple[int, ...] = ()):
-    if act != "swiglu":
-        raise NotImplementedError(f"mlp act {act!r}: only swiglu is ported")
+    if act not in _GLU:
+        raise NotImplementedError(f"mlp act {act!r}: only {_GLU} are ported")
     return {"wi": dense_init(gen, (*stack, d_model, d_ff), dtype, device),
             "wg": dense_init(gen, (*stack, d_model, d_ff), dtype, device),
             "wo": dense_init(gen, (*stack, d_ff, d_model), dtype, device)}
 
 
 def mlp_apply(params, x, act: str):
-    if act != "swiglu":
-        raise NotImplementedError(f"mlp act {act!r}: only swiglu is ported")
+    """GLU MLP.  GEGLU's gelu is the tanh form, as ``jax.nn.gelu``'s
+    default is."""
+    if act not in _GLU:
+        raise NotImplementedError(f"mlp act {act!r}: only {_GLU} are ported")
     h = torch.matmul(x, params["wi"])
-    g = F.silu(torch.matmul(x, params["wg"]))
+    g = torch.matmul(x, params["wg"])
+    g = F.silu(g) if act == "swiglu" else F.gelu(g, approximate="tanh")
     return torch.matmul(h * g, params["wo"])
 
 

@@ -11,7 +11,8 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 FILES = sorted(p.relative_to(ROOT) for p in PORT.rglob("*.py")) + [
-    Path("chip_smoke.py"), Path("tools/chip_init_divergence.py")]
+    Path("chip_smoke.py")] + sorted(
+        p.relative_to(ROOT) for p in (ROOT / "tools").glob("*.py"))
 
 
 def _imports(path):

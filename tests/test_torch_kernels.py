@@ -1,4 +1,5 @@
-"""The port's attention (``repro_torch.kernels``) against the JAX package's.
+"""The port's attention (``repro_torch.kernels``) against the JAX package's,
+and the CUDA kernels against their plain versions on the card.
 
 On the CPU the port's ops run their plain PyTorch versions; they are held
 against the JAX Pallas kernels in interpret mode and against the JAX
@@ -6,7 +7,9 @@ oracles, on the same inputs made from a numpy seed, with the tolerances of
 ``tests/test_kernels.py`` (2e-5 in f32, 2e-2 in bf16).  The tests marked
 ``cuda`` hold the CUDA kernels against the plain versions, and the paged
 decode kernel bitwise against the contiguous one on the same logical keys;
-they skip without a card.
+they skip without a card.  Among them, the SSD scan kernel is held against
+the plain chunked version (2e-4 in f32, the JAX package's SSD tolerance;
+2e-2 in bf16) and bitwise against itself under left pad with ``start``.
 """
 import numpy as np
 import pytest
@@ -22,6 +25,7 @@ from repro_torch.kernels.decode_attention import (decode_attention,
 from repro_torch.kernels.flash_attention import (attention, attention_ref,
                                                  attention_xla,
                                                  flash_attention_bshd)
+from repro_torch.kernels.mamba2_ssd import ssd, ssd_chunked_bshp
 
 torch.set_num_threads(1)
 
@@ -75,6 +79,8 @@ SWEEP = [
     (1, 33, 33, 2, 2, 16, True, 0),       # odd seq
     (2, 40, 40, 3, 1, 20, True, 0),       # smollm-smoke head_dim 20
     (1, 70, 70, 15, 5, 64, True, 0),      # smollm-360m heads
+    (1, 70, 70, 32, 32, 80, True, 0),     # zamba2-2.7b shared attention
+    (2, 40, 40, 4, 4, 16, True, 0),       # zamba2-smoke shared attention
 ]
 
 
@@ -181,6 +187,8 @@ DEC_SWEEP = [
     (2, 300, 4, 2, 64, 64),       # windowed
     (2, 100, 3, 1, 20, 0),        # smollm-smoke head_dim 20
     (2, 160, 15, 5, 64, 0),       # smollm-360m heads
+    (2, 300, 32, 32, 80, 0),      # zamba2-2.7b shared attention (G 1)
+    (2, 100, 4, 4, 16, 0),        # zamba2-smoke shared attention
 ]
 
 
@@ -417,3 +425,162 @@ def test_cuda_paged_decode_wrapper_rejects(cuda):
     with pytest.raises(ValueError, match="group"):
         flash_decode_paged_bshd(torch.zeros((2, 18, 32), device=cuda),
                                 pool, pool, table, lens)
+
+
+# ------------------------------------------------- SSD scan kernel (card) --
+
+SSD_SWEEP = [
+    (2, 96, 4, 8, 2, 16, 32),       # tests/test_kernels.py's SSD sweep
+    (1, 64, 2, 16, 1, 8, 16),
+    (2, 100, 4, 8, 1, 16, 32),      # S not a multiple of the chunk
+    (2, 200, 8, 64, 1, 64, 128),    # zamba2-2.7b heads, ragged S
+    (2, 1, 8, 64, 1, 64, 128),      # S below the chunk
+    (2, 64, 8, 64, 1, 64, 128),
+    (3, 40, 16, 8, 1, 16, 16),      # zamba2-smoke
+    (2, 100, 4, 32, 2, 32, 32),     # G 2 over 4 heads
+]
+
+
+def _ssd_inputs(g, dev, dtype, b, s, h, p, grp, n, pad=None):
+    """Normal x, B, C and dt in [0.01, 0.2] as in tests/test_kernels.py;
+    with ``pad`` (B,) the steps before it are zeroed, as the Mamba2 block
+    zeroes left pad."""
+    x = torch.randn((b, s, h, p), generator=g, device=dev).to(dtype)
+    dt = (torch.rand((b, s, h), generator=g, device=dev) * 0.19
+          + 0.01).to(dtype)
+    a = -(torch.rand((h,), generator=g, device=dev) * 1.5 + 0.5)
+    bm, cm = (torch.randn((b, s, grp, n), generator=g, device=dev).to(dtype)
+              for _ in range(2))
+    if pad is not None:
+        real = torch.arange(s, device=dev)[None, :] >= pad[:, None]
+        x, dt, bm, cm = (t * real.view(b, s, *(1,) * (t.dim() - 2)).to(dtype)
+                         for t in (x, dt, bm, cm))
+    return x, dt, a, bm, cm
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_h0", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,s,h,p,grp,n,chunk", SSD_SWEEP)
+def test_cuda_ssd_kernel_matches_plain(cuda, b, s, h, p, grp, n, chunk,
+                                       dtype, with_h0):
+    g = torch.Generator(device=cuda).manual_seed(9)
+    dt_ = TORCH_DT[dtype]
+    x, dt, a, bm, cm = _ssd_inputs(g, cuda, dt_, b, s, h, p, grp, n)
+    h0 = (torch.randn((b, h, p, n), generator=g, device=cuda)
+          if with_h0 else None)
+    before = ssd_chunked_bshp.launches
+    y, hl = ssd(x, dt, a, bm, cm, h0, chunk=chunk)
+    assert ssd_chunked_bshp.launches == before + 1
+    assert y.dtype == dt_ and hl.dtype == torch.float32
+    yp, hp = ssd(x, dt, a, bm, cm, h0, chunk=chunk, impl="chunked")
+    tol = (dict(rtol=2e-2, atol=2e-2) if dtype == "bfloat16"
+           else dict(rtol=2e-4, atol=2e-4))
+    np.testing.assert_allclose(_np(y.cpu()), _np(yp.cpu()), **tol)
+    np.testing.assert_allclose(_np(hl.cpu()), _np(hp.cpu()), **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_ssd_kernel_with_start_matches_plain(cuda, dtype):
+    """Ragged left pad with start (one row all pad): the kernel skips the
+    pad steps, the plain version runs over them; y is 0 there."""
+    g = torch.Generator(device=cuda).manual_seed(10)
+    pad = torch.tensor([0, 77, 300, 5], dtype=torch.int32, device=cuda)
+    x, dt, a, bm, cm = _ssd_inputs(g, cuda, TORCH_DT[dtype], 4, 300, 8, 64,
+                                   1, 64, pad=pad)
+    y, hl = ssd(x, dt, a, bm, cm, chunk=128, start=pad)
+    yp, hp = ssd(x, dt, a, bm, cm, chunk=128, impl="chunked")
+    tol = (dict(rtol=2e-2, atol=2e-2) if dtype == "bfloat16"
+           else dict(rtol=2e-4, atol=2e-4))
+    np.testing.assert_allclose(_np(y.cpu()), _np(yp.cpu()), **tol)
+    np.testing.assert_allclose(_np(hl.cpu()), _np(hp.cpu()), **tol)
+    assert (y[1, :77] == 0).all() and (y[2] == 0).all()
+    assert (hl[2] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("chunk", [16, 128])
+def test_cuda_ssd_kernel_bitwise_under_left_pad(cuda, dtype, chunk):
+    """One row after left pads of 0, 5, 31 and 200 steps, with start: its y
+    at the real steps and its final state are the same bits."""
+    g = torch.Generator(device=cuda).manual_seed(11)
+    x, dt, a, bm, cm = _ssd_inputs(g, cuda, TORCH_DT[dtype], 1, 97, 8, 64,
+                                   1, 64)
+    outs = []
+    for pad in (0, 5, 31, 200):
+        padded = [torch.cat([t.new_zeros((1, pad, *t.shape[2:])), t], 1)
+                  for t in (x, dt, bm, cm)]
+        start = torch.tensor([pad], dtype=torch.int32, device=cuda)
+        y, hl = ssd(*padded[:2], a, *padded[2:], chunk=chunk, start=start)
+        assert (y[:, :pad] == 0).all()
+        outs.append((y[:, pad:], hl))
+    for y, hl in outs[1:]:
+        assert torch.equal(y, outs[0][0]) and torch.equal(hl, outs[0][1])
+
+
+@pytest.mark.cuda
+def test_cuda_ssd_kernel_rejects(cuda):
+    """A CPU operand beside a CUDA x, a wrong dtype, shape or size raises;
+    nothing falls back to the plain version."""
+    g = torch.Generator(device=cuda).manual_seed(12)
+    x, dt, a, bm, cm = _ssd_inputs(g, cuda, torch.float32, 2, 20, 4, 8, 2,
+                                   16)
+    before = ssd_chunked_bshp.launches
+    with pytest.raises(ValueError, match="dt"):
+        ssd(x, dt.cpu(), a, bm, cm, chunk=16)
+    with pytest.raises(TypeError, match="Bm"):
+        ssd(x, dt, a, bm.bfloat16(), cm, chunk=16)
+    with pytest.raises(TypeError, match="float64"):
+        ssd(x.double(), dt, a, bm, cm, chunk=16)
+    with pytest.raises(ValueError, match="A must"):
+        ssd(x, dt, a.bfloat16(), bm, cm, chunk=16)
+    with pytest.raises(ValueError, match="chunk"):
+        ssd(x, dt, a, bm, cm, chunk=256)
+    with pytest.raises(ValueError, match="does not fit"):
+        ssd(x, dt, a, bm[:, :, :1].expand(2, 20, 3, 16).contiguous(),
+            cm[:, :, :1].expand(2, 20, 3, 16).contiguous(), chunk=16)
+    with pytest.raises(ValueError, match="start"):
+        ssd(x, dt, a, bm, cm, chunk=16,
+            start=torch.zeros((2,), dtype=torch.int64, device=cuda))
+    with pytest.raises(ValueError, match="h0"):
+        ssd(x, dt, a, bm, cm, torch.zeros((2, 4, 8, 16), device=cuda,
+                                          dtype=torch.bfloat16), chunk=16)
+    big = torch.zeros((1, 4, 1, 80), device=cuda)
+    with pytest.raises(ValueError, match="P 80"):
+        ssd(big, torch.zeros((1, 4, 1), device=cuda), a[:1],
+            torch.zeros((1, 4, 1, 16), device=cuda),
+            torch.zeros((1, 4, 1, 16), device=cuda), chunk=16)
+    assert ssd_chunked_bshp.launches == before
+
+
+@pytest.mark.cuda
+def test_cuda_ssd_kernel_holds_an_f64_scan_at_zamba2_decay_rates(cuda):
+    """A down to -8 and dt a softplus of about 1, as in zamba2-2.7b: the
+    kernel sums each decay segment directly and stays within 1e-6 of the
+    largest |y| of a float64 scan (differencing the running sum of dt·A
+    loses about 1e-4 of the decay weights there)."""
+    g = torch.Generator(device=cuda).manual_seed(13)
+    b, s, h, p, n = 2, 300, 8, 64, 64
+    x = torch.randn((b, s, h, p), generator=g, device=cuda)
+    dt = torch.nn.functional.softplus(
+        torch.randn((b, s, h), generator=g, device=cuda) * 0.88)
+    a = -torch.linspace(0.5, 8.0, h, device=cuda)
+    bm, cm = (torch.randn((b, s, 1, n), generator=g, device=cuda)
+              for _ in range(2))
+    y, hl = ssd(x, dt, a, bm, cm, chunk=128)
+    xd, dtd, ad, bd, cd = (t.double() for t in (x, dt, a, bm, cm))
+    decay = torch.exp(dtd * ad)
+    hs = torch.zeros((b, h, p, n), dtype=torch.float64, device=cuda)
+    ys = []
+    for t in range(s):
+        hs = (decay[:, t, :, None, None] * hs
+              + (dtd[:, t, :, None] * xd[:, t])[..., None]
+              * bd[:, t, 0][:, None, None, :])
+        ys.append(torch.einsum("bhpn,bn->bhp", hs, cd[:, t, 0]))
+    y64 = torch.stack(ys, dim=1)
+    assert float((y.double() - y64).abs().max()) <= 1e-6 * float(
+        y64.abs().max())
+    assert float((hl.double() - hs).abs().max()) <= 1e-6 * float(
+        hs.abs().max())

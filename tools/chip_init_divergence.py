@@ -10,9 +10,15 @@ The two inits differ only in the attention weights' scale: the port's
 JAX package's (``dense_init`` takes ``shape[-2]``: H for wq/wk/wv, D for
 wo), rebuilt here by rescaling.
 
+With ``--arch zamba2-2.7b`` it does the same for the hybrid at full width
+in f32, at the level of the last-token logits: the prefill with the kernels
+(SSD, flash attention) against the plain path, under the port's
+``hybrid_init`` and under the JAX package's scales (1/sqrt(H) for the
+shared wq/wk/wv, 1/sqrt(D) for its wo, 1 for the Mamba2 wB/wC).
+
 Run on a CUDA card from the repository root:
 
-    python3 tools/chip_init_divergence.py
+    python3 tools/chip_init_divergence.py [--arch zamba2-2.7b]
 """
 from __future__ import annotations
 
@@ -59,8 +65,47 @@ def drift(cfg, params, toks, lens):
     return same, stream, float(logits.abs().max())
 
 
-def main() -> int:
+def hybrid_logits_gap(cfg, params, toks, lens):
+    """Max |difference| of the f32 last-token logits, kernels against the
+    plain path."""
+    from repro_torch.models.hybrid import hybrid_forward
+    kw = dict(last_only=True, lengths=lens)
+    cuda = hybrid_forward(params, cfg, toks, attn_impl="auto",
+                          ssm_impl="auto", **kw)[0]
+    plain = hybrid_forward(params, cfg, toks, attn_impl="ref",
+                           ssm_impl="chunked", **kw)[0]
+    return float((cuda - plain).abs().max())
+
+
+def main_hybrid(cfg, toks, lens) -> None:
     import torch
+    from repro_torch.models import build_model
+    params = build_model(cfg, "cuda").init(
+        torch.Generator(device="cuda").manual_seed(0))
+    d, h, hd = cfg.d_model, cfg.n_heads, cfg.head_dim
+    shared = dict(params["shared"])
+    for k, heads in (("wq", h), ("wk", cfg.n_kv_heads),
+                     ("wv", cfg.n_kv_heads)):
+        shared[k] = shared[k] * math.sqrt(2 * d / heads)
+    shared["wo"] = shared["wo"] * math.sqrt(h)
+    mamba = {**params["mamba"], "wB": params["mamba"]["wB"] * math.sqrt(d),
+             "wC": params["mamba"]["wC"] * math.sqrt(d)}
+    jax_params = {**params, "shared": shared, "mamba": mamba}
+    for label, p in (("port init (true fan-in)", params),
+                     ("JAX dense_init fan-in", jax_params)):
+        gap = hybrid_logits_gap(cfg, p, toks, lens)
+        print(f"{cfg.name} {label}: last-token logits max diff, kernels vs "
+              f"plain: {gap:.3g}")
+
+
+def main() -> int:
+    import argparse
+
+    import torch
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", default="smollm-360m",
+                    choices=("smollm-360m", "zamba2-2.7b"))
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_init_divergence: torch sees no CUDA card",
               file=sys.stderr)
@@ -71,12 +116,16 @@ def main() -> int:
     from repro_torch.runtime.server import pack_prompts
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = get_config("smollm-360m").replace(param_dtype="float32",
-                                            compute_dtype="float32")
-    params = build_model(cfg, "cuda").init(torch.Generator().manual_seed(0))
+    cfg = get_config(args.arch).replace(param_dtype="float32",
+                                        compute_dtype="float32")
     toks, lens = pack_prompts(chip_smoke.wave_prompts(cfg), pad=cfg.pad_id)
     toks = torch.as_tensor(toks, device="cuda")
     lens = torch.as_tensor(lens, device="cuda")
+    if args.arch == "zamba2-2.7b":
+        main_hybrid(cfg, toks, lens)
+        print(_card())
+        return 0
+    params = build_model(cfg, "cuda").init(torch.Generator().manual_seed(0))
 
     attn = params["layers"]["attn"]
     jax_attn = {k: v * math.sqrt(cfg.d_model / (cfg.n_heads if k == "wq"
@@ -93,11 +142,15 @@ def main() -> int:
         print(f"{label}: residual stream max diff per layer: "
               + " ".join(f"{v:.2g}" for v in stream))
         print(f"{label}: last-token logits max diff {logits:.3g}")
-    print(subprocess.run(
+    print(_card())
+    return 0
+
+
+def _card() -> str:
+    return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip())
-    return 0
+        check=True, timeout=60).stdout.strip()
 
 
 if __name__ == "__main__":
