@@ -10,6 +10,7 @@ from .base import ModelConfig, MoEConfig, SSMConfig, ShapeConfig, SHAPES
 _MODULES = {
     "smollm-360m": "smollm_360m",
     "zamba2-2.7b": "zamba2_2p7b",
+    "rwkv6-1.6b": "rwkv6_1p6b",
 }
 ARCHS = tuple(_MODULES)
 

@@ -116,6 +116,9 @@ def ssd_decode_ref(xt, dtt, A, Bt, Ct, hprev):
     a = torch.exp(dtt.float() * A.float())
     hnew = (a[..., None, None] * hprev.float()
             + (dtt[..., None] * xt.float())[..., None] * Bh[..., None, :])
-    y = torch.einsum("bhpn,bhn->bhp", hnew, Ch)
+    # the readout as a product and a row sum, not an einsum: the einsum
+    # becomes a batched cuBLAS gemv whose sums depend on the B·H count, so
+    # a row's y would depend on the batch (measured on an H100)
+    y = (hnew * Ch[:, :, None, :]).sum(-1)
     return y.to(xt.dtype), hnew.float()
 

@@ -15,7 +15,7 @@ The paged-arena primitives (``paged_init_pool``, ``PagedArena``) serve
 ``runtime/engine.py``'s paged entry points.
 
 Everything runs on ``device`` — ``"cuda"`` unless the caller asks for the
-CPU.  The dense and hybrid families are ported.
+CPU.  The dense, hybrid and ssm families are ported.
 """
 from __future__ import annotations
 
@@ -26,7 +26,7 @@ import numpy as np
 import torch
 
 from ..configs.base import ModelConfig
-from . import hybrid, transformer
+from . import hybrid, rwkv_model, transformer
 
 
 @dataclass
@@ -50,7 +50,7 @@ def resolve_device(device) -> torch.device:
 
 
 def build_model(cfg: ModelConfig, device="cuda") -> Model:
-    if cfg.family not in ("dense", "hybrid") or cfg.moe.n_experts:
+    if cfg.family not in ("dense", "hybrid", "ssm") or cfg.moe.n_experts:
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
     if cfg.kv_quant != "none" or cfg.mrope_sections or cfg.embeds_input:
         raise NotImplementedError("int8 KV, M-RoPE and embedding inputs are "
@@ -60,6 +60,8 @@ def build_model(cfg: ModelConfig, device="cuda") -> Model:
 
     if cfg.family == "hybrid":
         return _build_hybrid(cfg, dev, impl)
+    if cfg.family == "ssm":
+        return _build_ssm(cfg, dev)
 
     def prefill(p, batch):
         return transformer.lm_prefill(p, cfg, batch["tokens"],
@@ -98,12 +100,35 @@ def _build_hybrid(cfg: ModelConfig, dev, impl) -> Model:
                      cfg, b, cap, dev, **kw))
 
 
+def _build_ssm(cfg: ModelConfig, dev) -> Model:
+    """The ssm (RWKV-6) facade.  Its prefill takes the WKV op's default
+    impl, "auto": the CUDA kernel on the card, the plain chunked form on
+    the CPU.  The JAX package's ``build_model`` passes no ``ssm_impl``, so
+    its serve path runs the plain chunked form.  Decode is the plain
+    one-token step, as in JAX."""
+    def prefill(p, batch):
+        logits, cache = rwkv_model.rwkv_forward(
+            p, cfg, batch["tokens"], collect_cache=True, last_only=True,
+            lengths=batch.get("lengths"))
+        return logits[:, -1], cache
+
+    def decode(p, cache, tokens):
+        return rwkv_model.rwkv_decode(p, cfg, cache, tokens)
+
+    return Model(cfg, dev, lambda gen: rwkv_model.rwkv_init(gen, cfg, dev),
+                 prefill, decode,
+                 lambda b, cap, **kw: rwkv_model.rwkv_init_cache(
+                     cfg, b, cap, dev, **kw))
+
+
 def grow_cache(cfg: ModelConfig, cache, new_cap: int, bucket: bool = True):
     """Pad the seq-capacity dim of a prefill cache so decode can append.
 
     ``bucket`` rounds the grown capacity up to the next power of two, as
     the JAX package does; the extra slots are masked out of attention like
-    left pad."""
+    left pad.  An ssm cache has no sequence axis and comes back as it is."""
+    if cfg.family == "ssm":
+        return cache
     if bucket:
         new_cap = 1 << max(0, int(new_cap) - 1).bit_length()
     out = dict(cache)
@@ -134,9 +159,10 @@ def grow_cache(cfg: ModelConfig, cache, new_cap: int, bucket: bool = True):
 def paged_supported(cfg: ModelConfig) -> bool:
     """Families servable from a paged arena.  Attention families need the
     plain (unquantized) KV pool layout; ssm has O(1) state and is served
-    paged via whole-state snapshots at the engine layer (no block pool).
-    hybrid keeps per-row conv/ssd state interleaved with KV — it stays on
-    the slot arena."""
+    paged via whole-state snapshots at the engine layer (no block pool) —
+    the answer is the JAX package's, but the port's paged engine has no
+    ssm snapshot path yet.  hybrid keeps per-row conv/ssd state interleaved
+    with KV — it stays on the slot arena."""
     if cfg.family == "ssm":
         return True
     return (cfg.family in ("dense", "moe", "vlm")

@@ -20,13 +20,15 @@ kernel and its decode the decode attention kernel.
 """
 from __future__ import annotations
 
+import weakref
+
 import torch
 
 from ..configs.base import ModelConfig
 from ..kernels.decode_attention import decode_attention
 from ..kernels.flash_attention import attention
 from .layers import (apply_rope, dense_init, embed_apply, embed_init,
-                     mlp_apply, pad_mask, ragged_positions, rms_norm)
+                     linear, mlp_apply, pad_mask, ragged_positions, rms_norm)
 from .mamba2 import mamba2_apply, mamba2_decode, mamba2_init
 
 
@@ -86,13 +88,39 @@ def hybrid_init(gen: torch.Generator, cfg: ModelConfig, device):
     return p
 
 
+def _heads(u, w):
+    """u (B,S,2d) @ w (2d, H, D) -> (B,S,H,D)."""
+    return linear(u, w.flatten(1)).unflatten(-1, w.shape[1:])
+
+
+_FOLDED_Q = {}        # ids of (wq, qa, qb) -> (weakrefs, versions, folded)
+
+
+def _folded_q(p):
+    """wq + qa @ qb for every group, (G, 2d, H·D): the shared q projection
+    with the group's LoRA folded in.  The JAX package computes the delta as
+    (u @ qa) @ qb; with N = rank 128 and K = 2d cuBLAS takes split-K
+    kernels for u @ qa up to 512 rows, so a row's q would depend on the
+    batch.  The fold is formed once per parameter tree (the tensors'
+    identity and version key it), not on every call."""
+    ts = (p["shared"]["wq"], p["lora"]["qa"], p["lora"]["qb"])
+    key, ver = tuple(map(id, ts)), tuple(t._version for t in ts)
+    hit = _FOLDED_Q.get(key)
+    if hit and hit[1] == ver and all(r() is t for r, t in zip(hit[0], ts)):
+        return hit[2]
+    folded = ts[0].flatten(1) + torch.matmul(ts[1], ts[2])
+    refs = tuple(weakref.ref(t, lambda _, k=key: _FOLDED_Q.pop(k, None))
+                 for t in ts)
+    _FOLDED_Q[key] = (refs, ver, folded)
+    return folded
+
+
 def _shared_qkv(ap, lora, u, positions, cfg):
-    """Project concat-input u (B,S,2d) -> q/k/v with per-group LoRA on q."""
-    q = torch.einsum("bsd,dhk->bshk", u, ap["wq"])
-    dq = torch.matmul(torch.matmul(u, lora["qa"]), lora["qb"])
-    q = q + dq.reshape(q.shape)
-    k = torch.einsum("bsd,dhk->bshk", u, ap["wk"])
-    v = torch.einsum("bsd,dhk->bshk", u, ap["wv"])
+    """Project concat-input u (B,S,2d) -> q/k/v; q through the group's
+    folded projection ``lora["wq"]`` (``_folded_q``)."""
+    q = linear(u, lora["wq"]).unflatten(-1, ap["wq"].shape[1:])
+    k = _heads(u, ap["wk"])
+    v = _heads(u, ap["wv"])
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
@@ -100,10 +128,9 @@ def _shared_qkv(ap, lora, u, positions, cfg):
 
 def _shared_out(ap, lora, o):
     """o (B,S,H,D) -> (B,S,d) with LoRA on the output proj."""
-    b, s_len = o.shape[:2]
-    out = torch.einsum("bshk,hkd->bsd", o, ap["wo"])
-    flat = o.reshape(b, s_len, -1)
-    return out + torch.matmul(torch.matmul(flat, lora["oa"]), lora["ob"])
+    flat = o.flatten(2)
+    out = linear(flat, ap["wo"].flatten(0, 1))
+    return out + linear(linear(flat, lora["oa"]), lora["ob"])
 
 
 def _shared_mlp(ap, x, x0, cfg):
@@ -130,8 +157,10 @@ def _mamba_layer(p, i):
 
 
 def _lora(p, gi):
-    """Group ``gi``'s LoRA deltas (views)."""
-    return {k: v[gi] for k, v in p["lora"].items()}
+    """Group ``gi``'s LoRA deltas (views) and, as ``"wq"``, its folded q
+    projection."""
+    return {**{k: v[gi] for k, v in p["lora"].items()},
+            "wq": _folded_q(p)[gi]}
 
 
 def hybrid_forward(p, cfg: ModelConfig, tokens, attn_impl: str = "auto",
@@ -174,7 +203,7 @@ def hybrid_forward(p, cfg: ModelConfig, tokens, attn_impl: str = "auto",
     if last_only:
         x = x[:, -1:]
     x = rms_norm(x, p["final_norm"], cfg.rms_eps)
-    logits = torch.matmul(x, p["unembed"].t())
+    logits = linear(x, p["unembed"].t())
     logits = logits.float() if cfg.logits_fp32 else logits
     if not collect_cache:
         return logits, {}
@@ -255,6 +284,6 @@ def hybrid_decode(p, cfg: ModelConfig, cache, tokens,
                              impl=attn_impl, kv_start=start)[:, None]
         x = _shared_mlp(ap, x + _shared_out(ap, lora, o), x0, cfg)
     x = rms_norm(x, p["final_norm"], cfg.rms_eps)
-    logits = torch.matmul(x[:, -1], p["unembed"].t())
+    logits = linear(x[:, -1], p["unembed"].t())
     logits = logits.float() if cfg.logits_fp32 else logits
     return logits, {**cache, "idx": idx + 1}

@@ -30,13 +30,63 @@ def dense_init(gen: torch.Generator, shape, dtype, device, *,
     return (x * scale).to(device=device, dtype=dtype)
 
 
+# ------------------------------------------------------- row floors ----
+# A row's result must not depend on how many rows share the call (greedy
+# tokens of a prompt are the same alone and packed).  On the card two
+# library ops break that below a row count, both measured on an H100:
+#
+# * cuBLAS picks split-K kernels (``nvjet_*_splitK`` + ``splitKreduce``)
+#   for a product whose few row tiles would leave SMs idle, and their sums
+#   run in another order.  Among the ported models' products it did so only
+#   at K >= 5120: K 5120 (N 2560) below 64 rows, K 10240 (N 2560) below
+#   128, K 7168 (N 2048) below 64 and at 128; from 256 rows on each row had
+#   the bits of a 4,096-row product.  No product of K <= 2560 split at any
+#   row count.
+# * ATen's row reduction (``reduce_kernel<512, 1, ...MeanOps>``) spreads a
+#   row over more threads when fewer than 16 rows are reduced.
+#
+# So a product with K >= SPLIT_K_MIN of fewer than ROW_FLOOR rows, and a
+# norm of fewer than NORM_ROW_FLOOR rows, is computed on zero rows padded
+# up to the floor.  ``chip_smoke.py`` ``phase_rows`` holds ``linear`` and
+# ``rms_norm`` to a row's 4,096-row bits at every row count, for every
+# product shape of the three ported models.
+
+SPLIT_K_MIN = 4096
+ROW_FLOOR = 256
+NORM_ROW_FLOOR = 16
+
+
+def _floor_rows(fn, x, floor: int):
+    """``fn`` applied to the rows of ``x`` (its last dim is the row), with
+    fewer than ``floor`` rows padded by zero rows that are dropped after."""
+    lead, d = x.shape[:-1], x.shape[-1]
+    rows = x.reshape(-1, d)
+    m = rows.shape[0]
+    if m < floor:
+        rows = torch.cat([rows, rows.new_zeros((floor - m, d))])
+    out = fn(rows)[:m]
+    return out.reshape(*lead, out.shape[-1])
+
+
+def linear(x, w):
+    """``x @ w`` for x (..., K) and w (K, N), with the row floor where
+    K >= SPLIT_K_MIN."""
+    if w.shape[0] < SPLIT_K_MIN:
+        return torch.matmul(x, w)
+    return _floor_rows(lambda rows: torch.matmul(rows, w), x, ROW_FLOOR)
+
+
 # ----------------------------------------------------------------- norms ----
 
-def rms_norm(x, weight, eps: float):
-    dt = x.dtype
+def _rms_rows(x, weight, eps: float):
     x = x.float()
     x = x * torch.rsqrt((x * x).mean(-1, keepdim=True) + eps)
-    return (x * (1.0 + weight.float())).to(dt)
+    return x * (1.0 + weight.float())
+
+
+def rms_norm(x, weight, eps: float):
+    return _floor_rows(lambda rows: _rms_rows(rows, weight, eps), x,
+                       NORM_ROW_FLOOR).to(x.dtype)
 
 
 # ---------------------------------------------------------- ragged batch ----
@@ -104,10 +154,10 @@ def mlp_apply(params, x, act: str):
     default is."""
     if act not in _GLU:
         raise NotImplementedError(f"mlp act {act!r}: only {_GLU} are ported")
-    h = torch.matmul(x, params["wi"])
-    g = torch.matmul(x, params["wg"])
+    h = linear(x, params["wi"])
+    g = linear(x, params["wg"])
     g = F.silu(g) if act == "swiglu" else F.gelu(g, approximate="tanh")
-    return torch.matmul(h * g, params["wo"])
+    return linear(h * g, params["wo"])
 
 
 # ------------------------------------------------------------- embedding ----

@@ -10,7 +10,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels.mamba2_ssd import ssd, ssd_decode
-from .layers import dense_init, rms_norm
+from .layers import dense_init, linear, rms_norm
 
 
 def mamba2_init(gen, d_model: int, *, expand: int, state_dim: int,
@@ -69,11 +69,12 @@ def _conv_step(w, state, xt):
 
 
 def _inner(p, x, *, head_dim):
-    z = torch.matmul(x, p["wz"])
-    xc = torch.matmul(x, p["wx"])
-    Bc = torch.einsum("bsd,dgn->bsgn", x, p["wB"])
-    Cc = torch.einsum("bsd,dgn->bsgn", x, p["wC"])
-    dt = torch.matmul(x, p["wdt"])
+    z = linear(x, p["wz"])
+    xc = linear(x, p["wx"])
+    d, g, n = p["wB"].shape
+    Bc = linear(x, p["wB"].reshape(d, g * n)).unflatten(-1, (g, n))
+    Cc = linear(x, p["wC"].reshape(d, g * n)).unflatten(-1, (g, n))
+    dt = linear(x, p["wdt"])
     return z, xc, Bc, Cc, dt
 
 
@@ -121,7 +122,7 @@ def mamba2_apply(p, x, *, head_dim: int, chunk: int = 64,
     y = y + p["D"].to(y.dtype)[None, None, :, None] * xh
     y = y.reshape(b, s_len, h * head_dim)
     y = rms_norm(y * F.silu(z), p["norm"], rms_eps)
-    out = torch.matmul(y, p["wo"])
+    out = linear(y, p["wo"])
     w1 = p["conv_x"].shape[0] - 1
     conv_tail = tuple(F.pad(ci, (0, 0, max(0, w1 - ci.shape[1]), 0))[:, -w1:]
                       for ci in conv_in)
@@ -151,5 +152,5 @@ def mamba2_decode(p, x, state, *, head_dim: int, rms_eps: float = 1e-6):
     y = y + p["D"].to(y.dtype)[None, :, None] * xh
     y = y.reshape(b, 1, h * head_dim)
     y = rms_norm(y * F.silu(z), p["norm"], rms_eps)
-    out = torch.matmul(y, p["wo"])
+    out = linear(y, p["wo"])
     return out, {"conv": (cx, cB, cC), "ssd": ssd_state}

@@ -274,3 +274,91 @@ def test_hybrid_is_registered_and_not_paged():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             build_model(cfg)
+
+
+# ------------------------------------------- rows independent of the batch --
+
+def test_row_floors_give_a_row_the_same_bits_at_any_row_count(monkeypatch):
+    """``linear`` computes a product with K >= SPLIT_K_MIN of fewer than
+    ROW_FLOOR rows on zero rows padded up to the floor, and ``rms_norm``
+    fewer than NORM_ROW_FLOOR rows likewise, so a row's bits do not depend
+    on how many rows share the call (on the card cuBLAS takes split-K
+    kernels at such K, and ATen's row reduction another thread layout,
+    below those counts).  A product of smaller K reaches the library as it
+    is, with no padded rows."""
+    from repro_torch.models.layers import (NORM_ROW_FLOOR, ROW_FLOOR,
+                                           SPLIT_K_MIN, linear, rms_norm)
+    rng = np.random.default_rng(8)
+    w = torch.from_numpy(
+        rng.normal(size=(SPLIT_K_MIN, 8)).astype(np.float32))
+    x = torch.from_numpy(
+        rng.normal(size=(ROW_FLOOR, SPLIT_K_MIN)).astype(np.float32))
+    full = linear(x, w)
+    assert torch.equal(full, torch.matmul(x, w))
+    for m in (1, 8, 64, ROW_FLOOR - 1):
+        assert torch.equal(linear(x[:m], w), full[:m]), m
+    x3 = x.reshape(8, 32, SPLIT_K_MIN)
+    assert torch.equal(linear(x3[:1, :3], w)[0], full[:3])
+
+    rows, matmul = [], torch.matmul
+    monkeypatch.setattr(torch, "matmul",
+                        lambda a, b: rows.append(a.shape[:-1]) or matmul(a, b))
+    linear(x[:3], w)
+    linear(x[:3, :96], w[:96])
+    assert rows == [(ROW_FLOOR,), (3,)]
+    monkeypatch.undo()
+
+    g = torch.from_numpy(rng.normal(size=(96,)).astype(np.float32))
+    xn = x[:NORM_ROW_FLOOR, :96]
+    normed = rms_norm(xn, g, 1e-6)
+    for m in (1, 2, 8, NORM_ROW_FLOOR - 1):
+        assert torch.equal(rms_norm(xn[:m], g, 1e-6), normed[:m]), m
+    xb = xn[:8].bfloat16()
+    assert rms_norm(xb[:1], g, 1e-6).dtype == torch.bfloat16
+    assert torch.equal(rms_norm(xb[:1], g, 1e-6), rms_norm(xb, g, 1e-6)[:1])
+
+
+def test_ssd_decode_row_does_not_depend_on_the_batch():
+    """The SSD decode step's readout is a product and a row sum, not an
+    einsum (on the card a batched gemv whose sums depend on the B·H count):
+    a row alone gives the bits it gets in a batch of 4.  The whole hybrid
+    decode step is not held so here: on the CPU even ``F.silu`` gives an
+    element other bits in the vector body than in the scalar tail, so the
+    end-to-end guard is ``chip_smoke.py`` phase 6 (bf16 solo == packed, 8
+    of 8, as a batch of 1 and pinned to 8 rows)."""
+    from repro_torch.kernels.mamba2_ssd import ssd_decode
+    rng = np.random.default_rng(9)
+    args = [torch.from_numpy(rng.normal(size=s).astype(np.float32))
+            for s in ((4, 16, 8), (4, 16), (16,), (4, 1, 16), (4, 1, 16),
+                      (4, 16, 8, 16))]
+    y4, h4 = ssd_decode(*args)
+    for i in range(4):
+        y1, h1 = ssd_decode(*[a if a.dim() == 1 else a[i:i + 1]
+                              for a in args])
+        assert torch.equal(y1[0], y4[i]) and torch.equal(h1[0], h4[i])
+
+
+def test_folded_q_is_formed_once_per_parameter_tree():
+    """The shared q projection with each group's LoRA folded in, wq + qa @
+    qb, is formed on the first call for a parameter tree and reused after;
+    an in-place change of qb forms it anew, and the entry goes with the
+    tree."""
+    from repro_torch.models import hybrid
+    cfg = _f32(get_smoke("zamba2-2.7b"))
+    p = build_model(cfg, "cpu").init(torch.Generator().manual_seed(3))
+    p["lora"]["qb"].normal_(generator=torch.Generator().manual_seed(4))
+    first = hybrid._folded_q(p)
+    assert hybrid._folded_q(p) is first
+    want = p["shared"]["wq"].flatten(1) + torch.matmul(p["lora"]["qa"],
+                                                       p["lora"]["qb"])
+    assert torch.equal(first, want)
+    assert first.shape == (cfg.n_layers // cfg.shared_attn_every,
+                           2 * cfg.d_model, cfg.n_heads * cfg.head_dim)
+    p["lora"]["qb"].mul_(2.0)
+    again = hybrid._folded_q(p)
+    assert again is not first and not torch.equal(again, first)
+    key = tuple(map(id, (p["shared"]["wq"], p["lora"]["qa"],
+                         p["lora"]["qb"])))
+    assert key in hybrid._FOLDED_Q
+    del p
+    assert key not in hybrid._FOLDED_Q

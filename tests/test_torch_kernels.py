@@ -9,7 +9,10 @@ oracles, on the same inputs made from a numpy seed, with the tolerances of
 decode kernel bitwise against the contiguous one on the same logical keys;
 they skip without a card.  Among them, the SSD scan kernel is held against
 the plain chunked version (2e-4 in f32, the JAX package's SSD tolerance;
-2e-2 in bf16) and bitwise against itself under left pad with ``start``.
+2e-2 in bf16) and bitwise against itself under left pad with ``start``, and
+the WKV kernel against the plain chunked version and the plain scan at
+5e-4 in f32 (the JAX package's WKV tolerance) and 2e-2 in bf16, and
+bitwise against itself under left pad with ``start``.
 """
 import numpy as np
 import pytest
@@ -26,6 +29,7 @@ from repro_torch.kernels.flash_attention import (attention, attention_ref,
                                                  attention_xla,
                                                  flash_attention_bshd)
 from repro_torch.kernels.mamba2_ssd import ssd, ssd_chunked_bshp
+from repro_torch.kernels.rwkv6_wkv import wkv6, wkv6_chunked_bshk
 
 torch.set_num_threads(1)
 
@@ -584,3 +588,166 @@ def test_cuda_ssd_kernel_holds_an_f64_scan_at_zamba2_decay_rates(cuda):
         y64.abs().max())
     assert float((hl.double() - hs).abs().max()) <= 1e-6 * float(
         hs.abs().max())
+
+
+# ------------------------------------------------------ WKV kernel (card) --
+
+WKV_SWEEP = [
+    (2, 96, 4, 8, 32),              # tests/test_kernels.py's WKV sweep
+    (1, 64, 2, 16, 16),
+    (2, 70, 4, 8, 32),              # S not a multiple of the chunk
+    (8, 512, 32, 64, 64),           # rwkv6-1.6b serving shape
+    (2, 200, 8, 64, 64),            # rwkv6-1.6b heads, ragged S
+    (2, 1, 8, 64, 64),              # S below the chunk
+    (3, 40, 4, 8, 16),              # rwkv6-smoke
+    (2, 50, 4, 24, 15),             # K no power of two, an odd chunk
+]
+
+
+def _wkv_inputs(g, dev, dtype, b, s, h, k, pad=None):
+    """Normal r, k, v (in ``dtype``) and u; logw = -exp(-0.5 + 0.6 N) in
+    f32, as rwkv6-1.6b's decays; with ``pad`` (B,) r, k, v are zeroed
+    before it, as the model's left pad zeroes them (logw stays)."""
+    r, kk, v = (torch.randn((b, s, h, k), generator=g, device=dev).to(dtype)
+                for _ in range(3))
+    lw = -torch.exp(-0.5 + 0.6 * torch.randn((b, s, h, k), generator=g,
+                                             device=dev))
+    u = 0.5 * torch.randn((h, k), generator=g, device=dev)
+    if pad is not None:
+        real = (torch.arange(s, device=dev)[None, :] >= pad[:, None])
+        real = real[:, :, None, None].to(dtype)
+        r, kk, v = r * real, kk * real, v * real
+    return r, kk, v, lw, u
+
+
+def _wkv_tol(dtype):
+    return (dict(rtol=2e-2, atol=2e-2) if dtype == "bfloat16"
+            else dict(rtol=5e-4, atol=5e-4))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_s0", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,s,h,k,chunk", WKV_SWEEP)
+def test_cuda_wkv_kernel_matches_plain(cuda, b, s, h, k, chunk, dtype,
+                                       with_s0):
+    g = torch.Generator(device=cuda).manual_seed(14)
+    dt_ = TORCH_DT[dtype]
+    r, kk, v, lw, u = _wkv_inputs(g, cuda, dt_, b, s, h, k)
+    s0 = (torch.randn((b, h, k, k), generator=g, device=cuda)
+          if with_s0 else None)
+    before = wkv6_chunked_bshk.launches
+    y, sl = wkv6(r, kk, v, lw, u, s0, chunk=chunk)
+    assert wkv6_chunked_bshk.launches == before + 1
+    assert y.dtype == dt_ and sl.dtype == torch.float32
+    for impl in ("chunked", "scan"):
+        yp, sp = wkv6(r, kk, v, lw, u, s0, chunk=chunk, impl=impl)
+        np.testing.assert_allclose(_np(y.cpu()), _np(yp.cpu()), err_msg=impl,
+                                   **_wkv_tol(dtype))
+        np.testing.assert_allclose(_np(sl.cpu()), _np(sp.cpu()),
+                                   err_msg=impl, **_wkv_tol(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_wkv_kernel_with_start_matches_plain(cuda, dtype):
+    """Ragged left pad with start (one row all pad): the kernel skips the
+    pad steps; the plain chunked form, which walks over them, agrees at
+    the tolerance; y is 0 there."""
+    g = torch.Generator(device=cuda).manual_seed(15)
+    pad = torch.tensor([0, 77, 300, 5], dtype=torch.int32, device=cuda)
+    r, kk, v, lw, u = _wkv_inputs(g, cuda, TORCH_DT[dtype], 4, 300, 8, 64,
+                                  pad=pad)
+    y, sl = wkv6(r, kk, v, lw, u, chunk=64, start=pad)
+    yp, sp = wkv6(r, kk, v, lw, u, chunk=64, impl="chunked")
+    np.testing.assert_allclose(_np(y.cpu()), _np(yp.cpu()), **_wkv_tol(dtype))
+    np.testing.assert_allclose(_np(sl.cpu()), _np(sp.cpu()),
+                               **_wkv_tol(dtype))
+    assert (y[1, :77] == 0).all() and (y[2] == 0).all()
+    assert (sl[2] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("chunk", [16, 64])
+def test_cuda_wkv_kernel_bitwise_under_left_pad(cuda, dtype, chunk):
+    """One row after left pads of 0, 5, 31 and 415 steps (r = k = v = 0,
+    logw -exp(-0.5) there, as the model leaves them), with start: its y at
+    the real steps and its final state are the same bits."""
+    g = torch.Generator(device=cuda).manual_seed(16)
+    r, kk, v, lw, u = _wkv_inputs(g, cuda, TORCH_DT[dtype], 1, 97, 8, 64)
+    outs = []
+    for pad in (0, 5, 31, 415):
+        padded = [torch.cat([t.new_zeros((1, pad, 8, 64)), t], 1)
+                  for t in (r, kk, v)]
+        lwp = torch.cat([lw.new_full((1, pad, 8, 64), -np.exp(-0.5)), lw], 1)
+        start = torch.tensor([pad], dtype=torch.int32, device=cuda)
+        y, sl = wkv6(*padded, lwp, u, chunk=chunk, start=start)
+        assert (y[:, :pad] == 0).all()
+        outs.append((y[:, pad:], sl))
+    for y, sl in outs[1:]:
+        assert torch.equal(y, outs[0][0]) and torch.equal(sl, outs[0][1])
+
+
+@pytest.mark.cuda
+def test_cuda_wkv_kernel_rejects(cuda):
+    """A CPU operand beside a CUDA r, a wrong dtype, shape or size raises;
+    nothing falls back to the plain version."""
+    g = torch.Generator(device=cuda).manual_seed(17)
+    r, kk, v, lw, u = _wkv_inputs(g, cuda, torch.float32, 2, 20, 4, 8)
+    before = wkv6_chunked_bshk.launches
+    with pytest.raises(ValueError, match="k is on"):
+        wkv6(r, kk.cpu(), v, lw, u, chunk=16)
+    with pytest.raises(TypeError, match="v is"):
+        wkv6(r, kk, v.bfloat16(), lw, u, chunk=16)
+    with pytest.raises(TypeError, match="float64"):
+        wkv6(r.double(), kk, v, lw, u, chunk=16)
+    with pytest.raises(TypeError, match="logw"):
+        wkv6(r, kk, v, lw.bfloat16(), u, chunk=16)
+    with pytest.raises(ValueError, match="K == V"):
+        wkv6(r, kk, v[..., :4], lw, u, chunk=16)
+    with pytest.raises(ValueError, match="chunk"):
+        wkv6(r, kk, v, lw, u, chunk=128)
+    with pytest.raises(ValueError, match="u must"):
+        wkv6(r, kk, v, lw, u[:2], chunk=16)
+    with pytest.raises(ValueError, match="start"):
+        wkv6(r, kk, v, lw, u, chunk=16,
+             start=torch.zeros((2,), dtype=torch.int64, device=cuda))
+    with pytest.raises(ValueError, match="s0"):
+        wkv6(r, kk, v, lw, u, torch.zeros((2, 4, 8, 8), device=cuda,
+                                          dtype=torch.bfloat16), chunk=16)
+    big = torch.zeros((1, 4, 1, 80), device=cuda)
+    with pytest.raises(ValueError, match="K 80"):
+        wkv6(big, big, big, big, torch.zeros((1, 80), device=cuda), chunk=16)
+    assert wkv6_chunked_bshk.launches == before
+
+
+@pytest.mark.cuda
+def test_cuda_wkv_kernel_holds_an_f64_scan_at_rwkv6_decay_rates(cuda):
+    """rwkv6-1.6b's decays (logw = -exp(-0.5 + N(0, 1)), the running sum
+    near -100 within a chunk): the kernel sums each decay segment directly
+    and stays within 1e-6 of the largest |y| and |state| of a float64 scan
+    (the JAX package's differencing of the running sum misses that at
+    these rates, ``tests/test_torch_wkv.py``)."""
+    g = torch.Generator(device=cuda).manual_seed(18)
+    b, s, h, k = 2, 256, 4, 64
+    r, kk, v = (torch.randn((b, s, h, k), generator=g, device=cuda)
+                for _ in range(3))
+    lw = -torch.exp(-0.5 + torch.randn((b, s, h, k), generator=g,
+                                       device=cuda))
+    u = 0.5 * torch.randn((h, k), generator=g, device=cuda)
+    y, sl = wkv6(r, kk, v, lw, u, chunk=64)
+    rd, kd, vd, ud = (t.double() for t in (r, kk, v, u))
+    w = torch.exp(lw.double())
+    S = torch.zeros((b, h, k, k), dtype=torch.float64, device=cuda)
+    ys = []
+    for t in range(s):
+        kv = kd[:, t, :, :, None] * vd[:, t, :, None, :]
+        ys.append(torch.einsum("bhk,bhkv->bhv", rd[:, t],
+                               S + ud[..., :, None] * kv))
+        S = w[:, t, :, :, None] * S + kv
+    y64 = torch.stack(ys, dim=1)
+    assert float((y.double() - y64).abs().max()) <= 1e-6 * float(
+        y64.abs().max())
+    assert float((sl.double() - S).abs().max()) <= 1e-6 * float(
+        S.abs().max())
