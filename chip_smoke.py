@@ -22,16 +22,22 @@ Phases, each raising on failure (the script then exits nonzero):
              over 4 heads, a given ``h0`` and the zamba2-smoke shape, and
              BITWISE: one row's y and final state after left pads of 0, 31
              and 415 with ``start``.  Kernels 1 and 2 at the shared
-             attention's (32, 32, 80).  The WKV kernel BITWISE against
-             its plain chunked version (which sums in its order) and
-             against the plain scan (f32 at 5e-4, bf16 at 2e-2) at the
+             attention's (32, 32, 80).  The WKV kernel against its plain
+             chunked version and the plain scan (f32 at 5e-4, bf16 at
+             2e-2) at the
              rwkv6-1.6b serving shape with ``start``, at S 200, 1 and 64,
              with a given ``s0`` and at the rwkv6-smoke shape, and BITWISE
              against itself: one row's y and final state after left pads of
-             0, 31 and 415 with ``start``.  Time each kernel, its
-             plain version and one PyTorch library call where there is one
-             (``scaled_dot_product_attention``, timed only, never used by
-             the port; none computes the SSD or the WKV scan).
+             0, 31 and 415 with ``start``.  Kernel 2 row by row: each
+             request's row of the wave's decode call, launched alone at its
+             solo capacity, BITWISE equal to its row of the B 8 call (bf16,
+             smollm and the shared attention's shapes).  Time each kernel,
+             its plain version and one PyTorch library call where there is
+             one (``scaled_dot_product_attention``, timed only, never used
+             by the port; none computes the SSD or the WKV scan), each
+             host-paced (CUDA events around 20 calls back to back) and the
+             kernel and the library call also device-only (the summed
+             device time of the profiled calls' kernels).
    rows    — whether a row's bf16 bits depend on how many rows share the
              call: each product of the three models (``torch.matmul`` and
              the port's ``linear`` with its 256-row floor), ``rms_norm``
@@ -122,6 +128,54 @@ def _time_ms(fn, iters=20, warmup=3):
     return t0.elapsed_time(t1) / iters
 
 
+def _device_ms(fn, iters=20, warmup=3):
+    """Mean device-only time of ``fn`` over ``iters`` calls: the summed
+    self device time of the CUDA rows (kernels, copies, fills) of one
+    ``torch.profiler`` run of the calls.  The host's time between launches
+    is left out, so a call whose device work is shorter than its host cost
+    is not timed at its host pace, as ``_time_ms`` times it."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    rows = [r for r in prof.key_averages()
+            if r.device_type == DeviceType.CUDA]
+    if not rows:
+        raise AssertionError("the profiler saw no device time")
+    return sum(r.self_device_time_total for r in rows) / 1e3 / iters
+
+
+def _times(kernel, plain, library=None, *, plain_iters=20, plain_warmup=3):
+    """Kernel, plain version and library call timed both ways: host-paced
+    (``ms``, ``plain_ms``, ``library_ms``; CUDA events around back-to-back
+    calls) and device-only (``device_ms``, ``library_device_ms``)."""
+    r = {"ms": _time_ms(kernel), "device_ms": _device_ms(kernel),
+         "plain_ms": _time_ms(plain, iters=plain_iters,
+                              warmup=plain_warmup),
+         "library_ms": None, "library_device_ms": None}
+    if library is not None:
+        r["library_ms"] = _time_ms(library)
+        r["library_device_ms"] = _device_ms(library)
+    return r
+
+
+def _print_times(name, r, t_bytes, t_ops):
+    """One phase-2 line of times: each call host-paced and device-only."""
+    lib = ("none" if r["library_ms"] is None else
+           f"{r['library_ms']:.4f} ms (device {r['library_device_ms']:.4f} "
+           "ms)")
+    print(f"[kernels] {name}: kernel {r['ms']:.4f} ms (device "
+          f"{r['device_ms']:.4f} ms), plain {r['plain_ms']:.4f} ms, library "
+          f"{lib}, bound {r['bound_ms']:.5f} ms ({r['bound_by']}; bytes "
+          f"{t_bytes:.5f} ms, operations {t_ops:.5f} ms)")
+
+
 def _wall_ms(fn):
     """Host time of one call that ends in a device sync."""
     import torch
@@ -181,9 +235,12 @@ def phase_build():
     logs = _build.build(verbose=True)
     secs = time.perf_counter() - t
     for name, log in logs.items():
+        entry = ""
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas {name}: {line.strip()}")
+            if "Compiling entry function" in line:
+                entry = line.split("'")[1] if "'" in line else ""
+            elif "registers" in line or "spill" in line:
+                print(f"  ptxas {name} {entry}: {line.strip()}")
     print(f"[build] {sorted(logs) or 'already built'} in {secs:.1f} s")
     return secs
 
@@ -245,6 +302,41 @@ def _wave_starts(s):
     return [s - n for n in WAVE_LENGTHS]
 
 
+def _decode_rows_alone(gen, dmain):
+    """Kernel 2 row by row: each request's row of the wave's decode call
+    (``dmain`` from ``_decode_case``: B 8 at the wave's capacity), launched
+    alone at the capacity its prompt packed alone is grown to, with its
+    keys placed after its own left pad and other values in the rest, must
+    give its row of the wave's call bitwise.  Returns the rows checked."""
+    import torch
+    from repro_torch.kernels.decode_attention import flash_decode_bshd
+    from repro_torch.runtime.server import shape_bucket
+    q, k, v, kl, ks = dmain
+    wave = flash_decode_bshd(q, k, v, kl, ks)
+    for i, n in enumerate(WAVE_LENGTHS):
+        lo, hi = int(ks[i]), int(kl[i])
+        width = shape_bucket(n)
+        cap = shape_bucket(width + MAX_NEW)
+        start = width - n
+        rows = []
+        for t in (k, v):
+            solo = _randn(gen, (1, cap, *t.shape[2:]), t.dtype, t.device)
+            solo[0, start:start + hi - lo] = t[i, lo:hi]
+            rows.append(solo)
+        out = flash_decode_bshd(
+            q[i:i + 1], *rows,
+            torch.tensor([start + hi - lo], dtype=torch.int32,
+                         device=q.device),
+            torch.tensor([start], dtype=torch.int32, device=q.device))
+        torch.cuda.synchronize()
+        if not torch.equal(out[0], wave[i]):
+            raise AssertionError(
+                f"decode row {i} ({n}-token prompt) alone at capacity {cap} "
+                f"!= its row of the B {q.shape[0]} call at capacity "
+                f"{k.shape[1]}: max diff {_max_err(out[0], wave[i]):.3g}")
+    return len(WAVE_LENGTHS)
+
+
 def phase_kernels(cfg, device):
     import torch
     gen = torch.Generator(device=device).manual_seed(1)
@@ -289,6 +381,10 @@ def phase_kernels(cfg, device):
             _, e = _decode_case(gen, device, dt, **kw)
             print(f"[kernels] decode {kw} {dt}: max err {e:.3g}")
 
+    n = _decode_rows_alone(gen, dmain)
+    print(f"[kernels] decode bf16: each of the wave's {n} rows alone at its "
+          f"solo capacity == its row of the B {b} call at capacity {cap}, "
+          "bitwise")
     # times at the serving shapes in bf16 (the last `main` / `dmain`)
     fa, dec = _attn_serving_times(main, dmain, starts, cap, lens)
     fa["max_abs_err"], dec["max_abs_err"] = errs["flash"], errs["decode"]
@@ -319,13 +415,11 @@ def _attn_serving_times(main, dmain, starts, cap, lens):
     fa_bound, fa_by, *fa_parts = _bound(fa_bytes, 4 * pairs * hq * d,
                                         "bfloat16")
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    fa = {
-        "ms": _time_ms(lambda: flash_attention_bshd(q, k, v, ks)),
-        "plain_ms": _time_ms(lambda: attention_xla(q, k, v, kv_start=ks)),
-        "library_ms": _time_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=mask[:, None], enable_gqa=True)),
-        "bound_ms": fa_bound, "bound_by": fa_by,
-    }
+    fa = _times(lambda: flash_attention_bshd(q, k, v, ks),
+                lambda: attention_xla(q, k, v, kv_start=ks),
+                lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=mask[:, None], enable_gqa=True))
+    fa.update(bound_ms=fa_bound, bound_by=fa_by)
     q, k, v, kl, ks = dmain
     valid = sum(max(0, min(n, cap) - st) for n, st in zip(lens, starts))
     dec_bytes = es * (valid * 2 * hkv * d + 2 * b * hq * d)
@@ -335,21 +429,15 @@ def _attn_serving_times(main, dmain, starts, cap, lens):
     dmask = ((ccols[None, :] >= ks[:, None])
              & (ccols[None, :] < kl[:, None]))[:, None, None]  # (B,1,1,Skv)
     q4, kt, vt = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
-    dec = {
-        "ms": _time_ms(lambda: flash_decode_bshd(q, k, v, kl, ks)),
-        "plain_ms": _time_ms(lambda: decode_attention_ref(q, k, v, kl,
-                                                          kv_start=ks)),
-        "library_ms": _time_ms(lambda: F.scaled_dot_product_attention(
-            q4, kt, vt, attn_mask=dmask, enable_gqa=True)),
-        "bound_ms": dec_bound, "bound_by": dec_by,
-    }
-    for name, r, (t_bytes, t_ops) in (("flash", fa, fa_parts),
-                                       ("decode", dec, dec_parts)):
-        print(f"[kernels] {name} bf16 serving shape hq{hq}/{hkv} d{d}: "
-              f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
-              f"library {r['library_ms']:.4f} ms, bound {r['bound_ms']:.5f} "
-              f"ms ({r['bound_by']}; bytes {t_bytes:.5f} ms, operations "
-              f"{t_ops:.5f} ms)")
+    dec = _times(lambda: flash_decode_bshd(q, k, v, kl, ks),
+                 lambda: decode_attention_ref(q, k, v, kl, kv_start=ks),
+                 lambda: F.scaled_dot_product_attention(
+                     q4, kt, vt, attn_mask=dmask, enable_gqa=True))
+    dec.update(bound_ms=dec_bound, bound_by=dec_by)
+    for name, r, parts in (("flash", fa, fa_parts),
+                           ("decode", dec, dec_parts)):
+        _print_times(f"{name} bf16 serving shape hq{hq}/{hkv} d{d}", r,
+                     *parts)
     return fa, dec
 
 
@@ -463,41 +551,32 @@ def phase_kernels_paged(cfg, device):
     cols = torch.arange(cap, device=device)
     dmask = (cols[None, :] < kl[:, None])[:, None, None]
     q4 = q[:, :, None]
-    paged = {
-        "ms": _time_ms(lambda: flash_decode_paged_bshd(q, pool_k, pool_v,
-                                                       table, kl)),
-        "plain_ms": _time_ms(lambda: decode_attention_paged_ref(
-            q, pool_k, pool_v, table, kl)),
-        "library_ms": _time_ms(lambda: F.scaled_dot_product_attention(
-            q4, kview, vview, attn_mask=dmask, enable_gqa=True)),
-        "library_note": "scaled_dot_product_attention on the pre-gathered "
-                        "view; excludes the gather",
-        "bound_ms": pd_bound, "bound_by": pd_by, "max_abs_err": errs["paged"],
-    }
+    paged = _times(
+        lambda: flash_decode_paged_bshd(q, pool_k, pool_v, table, kl),
+        lambda: decode_attention_paged_ref(q, pool_k, pool_v, table, kl),
+        lambda: F.scaled_dot_product_attention(
+            q4, kview, vview, attn_mask=dmask, enable_gqa=True))
+    paged.update(library_note="scaled_dot_product_attention on the "
+                 "pre-gathered view; excludes the gather",
+                 bound_ms=pd_bound, bound_by=pd_by,
+                 max_abs_err=errs["paged"])
     rows = torch.arange(256, device=device)[:, None] + 256
     cmask = (cols[None, :] <= rows) & (cols[None, :] < 512)     # (Sq,Skv)
     pairs = int(cmask.sum())
     fc_bytes = es * (2 * 256 * hq * d + 512 * 2 * hkv * d) + 4
     fc_bound, fc_by, *fc_parts = _bound(fc_bytes, 4 * pairs * hq * d,
                                         "bfloat16")
-    chunk = {
-        "ms": _time_ms(lambda: flash_attention_bshd(qc, kc, vc, kv_len=klc,
-                                                    q_offset=256)),
-        "plain_ms": _time_ms(lambda: attention_xla(qc, kc, vc, kv_len=klc,
-                                                   q_offset=256)),
-        "library_ms": _time_ms(lambda: F.scaled_dot_product_attention(
+    chunk = _times(
+        lambda: flash_attention_bshd(qc, kc, vc, kv_len=klc, q_offset=256),
+        lambda: attention_xla(qc, kc, vc, kv_len=klc, q_offset=256),
+        lambda: F.scaled_dot_product_attention(
             qc.transpose(1, 2), kc.transpose(1, 2), vc.transpose(1, 2),
-            attn_mask=cmask[None, None], enable_gqa=True)),
-        "bound_ms": fc_bound, "bound_by": fc_by,
-        "max_abs_err": errs["flash_chunk"],
-    }
-    for name, r, (t_bytes, t_ops) in (("paged decode", paged, pd_parts),
-                                       ("flash chunk", chunk, fc_parts)):
-        print(f"[kernels] {name} bf16 serving shape: kernel {r['ms']:.4f} "
-              f"ms, plain {r['plain_ms']:.4f} ms, library "
-              f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms "
-              f"({r['bound_by']}; bytes {t_bytes:.5f} ms, operations "
-              f"{t_ops:.5f} ms)")
+            attn_mask=cmask[None, None], enable_gqa=True))
+    chunk.update(bound_ms=fc_bound, bound_by=fc_by,
+                 max_abs_err=errs["flash_chunk"])
+    for name, r, parts in (("paged decode", paged, pd_parts),
+                           ("flash chunk", chunk, fc_parts)):
+        _print_times(f"{name} bf16 serving shape", r, *parts)
     print("[kernels] paged decode library time is scaled_dot_product_"
           "attention on the pre-gathered view: it excludes the gather")
     return paged, chunk
@@ -661,22 +740,21 @@ def phase_kernels_hybrid(hcfg, device):
         print(f"[kernels] decode b2 skv300 hq{hq}/{hkv} d{d} {dt}: max err "
               f"{e:.3g}")
 
+    n = _decode_rows_alone(gen, dmain)
+    print(f"[kernels] decode bf16 hq{hq}/{hkv} d{d}: each of the wave's {n} "
+          f"rows alone at its solo capacity == its row of the B {b} call "
+          f"at capacity {cap}, bitwise")
     # times at the serving shapes in bf16 (the last cases of the loop)
     x, dt, A, bm, cm, st = main
     bound, by, t_bytes, t_ops = _ssd_bound(x, dt, bm, st, chunk)
-    ssd_r = {
-        "ms": _time_ms(lambda: ssd_chunked_bshp(x, dt, A, bm, cm,
-                                                chunk=chunk, start=st)),
-        "plain_ms": _time_ms(lambda: ssd(x, dt, A, bm, cm, chunk=chunk,
-                                         impl="chunked")),
-        "library_ms": None,
-        "library_note": "none: no single PyTorch call computes the SSD scan",
-        "bound_ms": bound, "bound_by": by, "max_abs_err": errs["ssd"],
-    }
-    print(f"[kernels] ssd bf16 serving shape: kernel {ssd_r['ms']:.4f} ms, "
-          f"plain {ssd_r['plain_ms']:.4f} ms, library none, bound "
-          f"{bound:.5f} ms ({by}; bytes {t_bytes:.5f} ms, operations "
-          f"{t_ops:.5f} ms)")
+    ssd_r = _times(lambda: ssd_chunked_bshp(x, dt, A, bm, cm, chunk=chunk,
+                                            start=st),
+                   lambda: ssd(x, dt, A, bm, cm, chunk=chunk,
+                               impl="chunked"))
+    ssd_r.update(library_note="none: no single PyTorch call computes the "
+                 "SSD scan", bound_ms=bound, bound_by=by,
+                 max_abs_err=errs["ssd"])
+    _print_times("ssd bf16 serving shape", ssd_r, t_bytes, t_ops)
     fa, dec = _attn_serving_times(amain, dmain, starts, cap, lens)
     fa["max_abs_err"], dec["max_abs_err"] = errs["flash"], errs["decode"]
     return ssd_r, fa, dec
@@ -820,20 +898,14 @@ def phase_kernels_rwkv(rcfg, device):
     # times at the serving shape in bf16 (the last case of the loop)
     r, kk, v, logw, u, st = main
     bound, by, t_bytes, t_ops = _wkv_bound(r, st, chunk)
-    res = {
-        "ms": _time_ms(lambda: wkv6_chunked_bshk(r, kk, v, logw, u,
-                                                 chunk=chunk, start=st)),
-        "plain_ms": _time_ms(lambda: wkv6(r, kk, v, logw, u, chunk=chunk,
-                                          impl="chunked"),
-                             iters=5, warmup=1),
-        "library_ms": None,
-        "library_note": "none: no single PyTorch call computes the WKV scan",
-        "bound_ms": bound, "bound_by": by, "max_abs_err": err,
-    }
-    print(f"[kernels] wkv bf16 serving shape: kernel {res['ms']:.4f} ms, "
-          f"plain {res['plain_ms']:.4f} ms, library none, bound "
-          f"{bound:.5f} ms ({by}; bytes {t_bytes:.5f} ms, operations "
-          f"{t_ops:.5f} ms)")
+    res = _times(lambda: wkv6_chunked_bshk(r, kk, v, logw, u, chunk=chunk,
+                                           start=st),
+                 lambda: wkv6(r, kk, v, logw, u, chunk=chunk,
+                              impl="chunked"),
+                 plain_iters=5, plain_warmup=1)
+    res.update(library_note="none: no single PyTorch call computes the WKV "
+               "scan", bound_ms=bound, bound_by=by, max_abs_err=err)
+    _print_times("wkv bf16 serving shape", res, t_bytes, t_ops)
     return res
 
 

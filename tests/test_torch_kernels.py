@@ -307,11 +307,27 @@ def test_cuda_flash_kernel_matches_plain(cuda, b, sq, skv, hq, hkv, d,
                                **_tol(dtype))
 
 
+# The decode kernels cut a row's valid keys into tiles of 64 at fixed
+# logical positions and give each (row, KV head) a cluster of blocks
+# (``cluster_of`` in ``decode_attention.cu``: 8, or 2 at G 1), which take
+# the tiles in turn: valid lengths at the tile's edges, and 600 and 1,900,
+# which span more tiles (10, 30) than the cluster has blocks.
+TILE_EDGE_LENS = [0, 1, 63, 64, 65, 1900]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("b,skv,hq,hkv,d,window", DEC_SWEEP)
+@pytest.mark.parametrize("b,skv,hq,hkv,d,window,n_valid", [
+    *(pytest.param(*c, None, id="-".join(map(str, c))) for c in DEC_SWEEP),
+    *(pytest.param(3, 2048, 15, 5, 64, 0, n, id=f"valid{n}")
+      for n in TILE_EDGE_LENS),
+    pytest.param(3, 2048, 32, 32, 80, 100, 65, id="valid65-g1-d80-window"),
+    pytest.param(3, 2048, 8, 1, 128, 0, 1900, id="valid1900-g8-d128"),
+])
 def test_cuda_decode_kernel_matches_plain(cuda, b, skv, hq, hkv, d, window,
-                                          dtype):
+                                          n_valid, dtype):
+    """With ``n_valid`` every row holds that many valid keys: from column
+    0, after a left pad of 37 with kv_start, and at the end of the cache."""
     g = torch.Generator(device=cuda).manual_seed(5)
     dt = TORCH_DT[dtype]
     q = torch.randn((b, hq, d), generator=g, device=cuda).to(dt)
@@ -321,6 +337,11 @@ def test_cuda_decode_kernel_matches_plain(cuda, b, skv, hq, hkv, d, window,
     lens[0] = max(1, skv // 3)
     starts = torch.zeros((b,), dtype=torch.int32, device=cuda)
     starts[-1] = skv // 4
+    if n_valid is not None:
+        lens = torch.tensor([n_valid, 37 + n_valid, skv], dtype=torch.int32,
+                            device=cuda)
+        starts = torch.tensor([0, 37, skv - n_valid], dtype=torch.int32,
+                              device=cuda)
     before = flash_decode_bshd.launches
     out = decode_attention(q, k, v, lens, window=window, kv_start=starts)
     assert flash_decode_bshd.launches == before + 1
@@ -328,6 +349,49 @@ def test_cuda_decode_kernel_matches_plain(cuda, b, skv, hq, hkv, d, window,
                                kv_start=starts)
     np.testing.assert_allclose(_np(out.cpu()), _np(ref.cpu()),
                                **_tol(dtype))
+    if n_valid == 0:
+        assert (out == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("window", [0, 100])
+@pytest.mark.parametrize("n_valid", [0, 1, 63, 64, 65, 600])
+@pytest.mark.parametrize("hq,hkv,d", [(32, 32, 80), (16, 16, 128),
+                                      (15, 5, 64), (3, 1, 20),
+                                      (8, 1, 128), (16, 2, 64)])
+def test_cuda_decode_row_bits_do_not_depend_on_batch_or_capacity(
+        cuda, hq, hkv, d, n_valid, window, dtype):
+    """A row's bits are the same alone (B 1, a cache of exactly its keys)
+    as inside a B 8 call at capacity 1,024, where it sits after a left pad
+    with kv_start among rows of other lengths; and the paged kernel gives
+    them on a pool of the B 8 cache (block size 16).  G 1, 3 and 8; D 20,
+    64, 80 and 128."""
+    g = torch.Generator(device=cuda).manual_seed(9)
+    dt = TORCH_DT[dtype]
+    b, cap, row = 8, 1024, 5
+    q = torch.randn((b, hq, d), generator=g, device=cuda).to(dt)
+    k, v = (torch.randn((b, cap, hkv, d), generator=g, device=cuda).to(dt)
+            for _ in range(2))
+    lens = torch.randint(1, cap + 1, (b,), generator=g, device=cuda)
+    starts = (torch.rand((b,), generator=g, device=cuda)
+              * lens).to(torch.int32)
+    pad = cap - n_valid - 11
+    lens[row], starts[row] = pad + n_valid, pad
+    lens = lens.to(torch.int32)
+    wave = decode_attention(q, k, v, lens, window=window, kv_start=starts)
+    solo_cap = max(n_valid, 1)
+    alone = decode_attention(
+        q[row:row + 1], k[row:row + 1, pad:pad + solo_cap].contiguous(),
+        v[row:row + 1, pad:pad + solo_cap].contiguous(),
+        torch.tensor([n_valid], dtype=torch.int32, device=cuda),
+        window=window)
+    assert torch.equal(alone[0], wave[row])
+    pool_k, pool_v, table = pool_from_contiguous(k, v, 16, lens=lens,
+                                                 generator=g)
+    paged = decode_attention_paged(q, pool_k, pool_v, table, lens,
+                                   window=window, kv_start=starts)
+    assert torch.equal(paged, wave)
 
 
 @pytest.mark.cuda
@@ -357,18 +421,23 @@ def test_cuda_flash_kernel_kv_len_matches_plain(cuda, dtype, sq, skv,
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("bs", [1, 4, 16, 48, 64])
-@pytest.mark.parametrize("hq,hkv,d,window", [(15, 5, 64, 0), (3, 1, 20, 0),
-                                             (8, 2, 64, 40)])
+@pytest.mark.parametrize("hq,hkv,d,window,lens", [
+    *(pytest.param(*c, [192, 0, 77, 1], id="-".join(map(str, c)))
+      for c in ((15, 5, 64, 0), (3, 1, 20, 0), (8, 2, 64, 40))),
+    pytest.param(15, 5, 64, 0, [63, 64, 65, 1900], id="15-5-64-0-edges"),
+    pytest.param(8, 1, 128, 100, [1900, 1, 0, 65], id="8-1-128-100-edges"),
+])
 def test_cuda_paged_decode_kernel_matches_plain(cuda, dtype, bs, hq, hkv, d,
-                                                window):
-    """Ragged kv_len (one row 0), a scrambled table with a trash tail."""
+                                                window, lens):
+    """Ragged kv_len (one row 0), a scrambled table with a trash tail; and
+    lengths at the kernel's tile edges over a 2,048-key view."""
     g = torch.Generator(device=cuda).manual_seed(7)
     dt = TORCH_DT[dtype]
-    b, skv = 4, 192
+    b, skv = 4, max(192, *lens)
     q = torch.randn((b, hq, d), generator=g, device=cuda).to(dt)
     k, v = (torch.randn((b, skv, hkv, d), generator=g, device=cuda).to(dt)
             for _ in range(2))
-    lens = torch.tensor([192, 0, 77, 1], dtype=torch.int32, device=cuda)
+    lens = torch.tensor(lens, dtype=torch.int32, device=cuda)
     pool_k, pool_v, table = pool_from_contiguous(k, v, bs, lens=lens,
                                                  generator=g)
     before = flash_decode_paged_bshd.launches
@@ -379,26 +448,31 @@ def test_cuda_paged_decode_kernel_matches_plain(cuda, dtype, bs, hq, hkv, d,
                                      window=window)
     np.testing.assert_allclose(_np(out.cpu()), _np(ref.cpu()),
                                **_tol(dtype))
-    assert (out[1] == 0).all()
+    assert (out[lens == 0] == 0).all()
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("bs", [16, 48])
-@pytest.mark.parametrize("left_pad", [0, 5, 100])
+@pytest.mark.parametrize("bs", [1, 16, 48])
+@pytest.mark.parametrize("left_pad,lens", [
+    *(pytest.param(p, [320, 250, 33], id=str(p)) for p in (0, 5, 100)),
+    pytest.param(0, [0, 1, 63], id="0-edges-0-1-63"),
+    pytest.param(37, [64, 65, 600], id="37-edges-64-65-600"),
+])
 def test_cuda_paged_decode_bitwise_equals_contiguous_kernel(cuda, dtype, bs,
-                                                            left_pad):
+                                                            left_pad, lens):
     """The serving contract: on the same logical keys the paged kernel gives
     the contiguous kernel's bits — on the gathered view (left_pad 0), and on
     the keys placed after a left pad with kv_start (how a solo wave holds
-    them)."""
+    them); also at lengths on the kernel's tile edges and over more tiles
+    than its cluster has blocks."""
     g = torch.Generator(device=cuda).manual_seed(8)
     dt = TORCH_DT[dtype]
-    b, skv, hq, hkv, d = 3, 320, 15, 5, 64
+    b, skv, hq, hkv, d = 3, max(320, *lens), 15, 5, 64
     q = torch.randn((b, hq, d), generator=g, device=cuda).to(dt)
     k, v = (torch.randn((b, skv, hkv, d), generator=g, device=cuda).to(dt)
             for _ in range(2))
-    lens = torch.tensor([320, 250, 33], dtype=torch.int32, device=cuda)
+    lens = torch.tensor(lens, dtype=torch.int32, device=cuda)
     pool_k, pool_v, table = pool_from_contiguous(k, v, bs, lens=lens,
                                                  generator=g)
     for window in (0, 70):
